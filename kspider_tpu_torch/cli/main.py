@@ -1,0 +1,148 @@
+"""CLI of the port: ``python -m kspider_tpu_torch`` / ``kspider-torch``.
+
+``pairwise`` and ``cluster`` are the port's own and keep the option names
+of ``kspider_tpu/cli/main.py``, plus ``--device`` (default ``cuda``).
+``--cpu`` keeps its meaning: the numpy / scipy host engines.  The jax-free
+commands of the JAX package (sketch, index, hidden FASTA indexers, export,
+tools) are registered unchanged, except that ``index --device-build``,
+which would load jax, is refused.  Options that need code not ported yet
+(tiled engine, multi-process runs) are refused with a message naming the
+ROADMAP item that ports them.
+"""
+
+import os
+
+import click
+
+from kspider_tpu.cli import main as tpu_cli
+from kspider_tpu_torch.cli.context import cli
+
+
+def _resolve(log, device_name, force_cpu):
+    """The torch device for ``--device``, or None for ``--cpu``."""
+    if force_cpu:
+        return None
+    from kspider_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(device_name)
+    except RuntimeError as exc:
+        log.ERROR(str(exc))
+
+
+def _not_ported(log, what, item):
+    log.ERROR(
+        f"{what} is not ported to kspider_tpu_torch yet (ROADMAP.md queue 1, "
+        f"'{item}'); use python -m kspider_tpu for it"
+    )
+
+
+def _index(**kwargs):
+    if kwargs["device_build"]:
+        _not_ported(click.get_current_context().obj, "index --device-build",
+                    "Device index build")
+    return tpu_cli.index.callback(**kwargs)
+
+
+for _cmd, _priority in (
+    (tpu_cli.sketch, 1),
+    (click.Command(name="index", callback=_index, params=tpu_cli.index.params,
+                   help=tpu_cli.index.help), 2),
+    (tpu_cli.index_kmers, 1),
+    (tpu_cli.index_skipmers, 2),
+    (tpu_cli.index_protein, 3),
+    (tpu_cli.export, 5),
+    (tpu_cli.tools, 6),
+):
+    cli.add_command(_cmd)
+    cli.help_priorities[_cmd.name] = _priority
+
+
+@cli.command(name="pairwise", help_priority=3)
+@click.option("-i", "--index-prefix", "index_prefix", required=True, type=click.STRING, help="Index file prefix")
+@click.option("--estimate-ani", "ani", is_flag=True, show_default=True, default=False, help="estimate ANI and write result in a new file with single column")
+@click.option("-t", "--threads", "user_threads", default=1, required=False, type=int, help="number of cores (accepted for compatibility; the GPU engine ignores it)")
+@click.option("-s", "--scale", "sourmash_scale", required=False, default=0, type=int, help="scale used in creating sourmash sigs (only when using --estimate-ani)")
+@click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use the host (numpy) engine instead of the GPU kernel")
+@click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the Gram kernel (cuda, cuda:N or cpu)")
+@click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "tiled"]), help="co-occurrence engine (tiled = panel-streamed, not ported yet)")
+@click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width for the tiled engine")
+@click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="emit only pairs with at least this many shared k-mers")
+@click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="device-side bitmask packing (tiled engine; the dense engine packs on the host)")
+@click.option("--coordinator", "coordinator", default=None, type=click.STRING, help="coordinator address for multi-process runs (not ported yet)")
+@click.option("--num-processes", "num_processes", default=None, type=int, help="total coordinated processes (not ported yet)")
+@click.option("--process-id", "process_id", default=None, type=int, help="this process's id in [0, num-processes)")
+@click.pass_context
+def pairwise(ctx, index_prefix, ani, user_threads, sourmash_scale, force_cpu, device_name, engine, panel, min_shared, device_pack, coordinator, num_processes, process_id):
+    """Generate containment pairwise matrix."""
+    log = ctx.obj
+    if engine == "tiled":
+        _not_ported(log, "--engine tiled", "Tiled engine")
+    if device_pack == "force":
+        _not_ported(log, "--device-pack force", "Tiled engine")
+    n_procs = num_processes or int(os.environ.get("KSPIDER_NUM_PROCESSES", "1"))
+    if coordinator or os.environ.get("KSPIDER_COORDINATOR") or n_procs > 1:
+        _not_ported(log, "--coordinator / --num-processes > 1",
+                    "Multi-GPU and multi-process")
+    if not ani:
+        from kspider_tpu_torch.core import pairwise as core_pairwise
+
+        device = _resolve(log, device_name, force_cpu)
+        log.INFO("Constructing the containment pairwise matrix.")
+        if sourmash_scale:
+            log.WARNING("No need to provide -s/--scale when running this command.")
+        try:
+            core_pairwise.run_pairwise(
+                index_prefix, device=device, min_shared=min_shared
+            )
+        except NotImplementedError as exc:
+            log.ERROR(str(exc))
+        log.SUCCESS("Done.")
+        return
+
+    from kspider_tpu.models import ani as ani_model
+
+    if not os.path.exists(index_prefix + "_kSpider_pairwise.tsv"):
+        log.ERROR("Please, run the same command without --estimate-ani first, then run this command.")
+    log.INFO("Estimating the ANI. This might take some time if the data is very large.")
+    if user_threads > 1:
+        log.WARNING("sorry, current ANI estimation implementation does not allow multithreading")
+    if not sourmash_scale:
+        log.ERROR("estimating ANI requires to provide --scale value")
+    with open(f"{index_prefix}.extra") as extra:
+        ksize = int(next(extra))
+    ani_model.write_ani_column(index_prefix, ksize, sourmash_scale, logger=log)
+    log.SUCCESS("Done.")
+
+
+@cli.command(name="cluster", help_priority=4)
+@click.option("-c", "--cutoff", required=False, type=click.FloatRange(0, 1, clamp=False), default=0.0, show_default=True, help="cluster sequences with (containment > cutoff)")
+@click.option("-i", "--index-prefix", "index_prefix", required=True, type=click.STRING, help="Index file prefix")
+@click.option("-d", "--dist-type", "distance_type", required=False, default="max_cont", show_default=True, type=click.STRING, help="select from ['min_cont', 'avg_cont', 'max_cont', 'ani']")
+@click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use scipy connected-components instead of the GPU label propagation")
+@click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the connected-components rounds (cuda, cuda:N or cpu)")
+@click.option("--from-index", "from_index", is_flag=True, default=False, help="cluster straight from the index via the panel-streamed engine (not ported yet)")
+@click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width (--from-index mode)")
+@click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="ignore pairs below this many shared k-mers (--from-index mode)")
+@click.pass_context
+def cluster(ctx, index_prefix, cutoff, distance_type, force_cpu, device_name, from_index, panel, min_shared):
+    """Sequence clustering."""
+    from kspider_tpu_torch.core import cluster as core_cluster
+
+    log = ctx.obj
+    if from_index:
+        _not_ported(log, "--from-index", "Tiled engine")
+    device = _resolve(log, device_name, force_cpu)
+    log.INFO("Building the main graph...")
+    out = core_cluster.cluster_index(
+        index_prefix, cutoff, dist_type=distance_type, device=device, logger=log
+    )
+    log.SUCCESS(f"Clusters written to {out}")
+
+
+def main():
+    cli()
+
+
+if __name__ == "__main__":
+    main()

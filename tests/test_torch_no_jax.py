@@ -1,0 +1,45 @@
+"""kspider_tpu_torch never imports jax.
+
+Runs in a subprocess because tests/conftest.py imports jax into this one.
+"""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import os, sys
+import numpy as np
+import kspider_tpu_torch
+from kspider_tpu_torch.cli.main import cli  # registers every command
+from kspider_tpu.core.index import build_index_from_hash_sets
+from kspider_tpu.io import artifacts
+from kspider_tpu_torch.core import cluster, pairwise
+
+rng = np.random.default_rng(0)
+pool = np.unique(rng.integers(0, 2**63, size=4000, dtype=np.uint64))
+arrays = [np.unique(np.concatenate([pool[(i % 2) * 1000:(i % 2) * 1000 + 1000][rng.random(1000) < 0.7],
+                                    pool[2000 + 100 * i:2100 + 100 * i]])) for i in range(6)]
+index = build_index_from_hash_sets([f"s{i}" for i in range(6)], arrays, ksize=21)
+prefix = os.path.join(sys.argv[1], "idx")
+artifacts.write_index_artifacts(prefix, index)
+shared = pairwise.run_pairwise(prefix, device="cpu", echo_timers=False)
+assert shared.shape == (6, 6) and shared[0, 2] > 0
+with open(cluster.cluster_index(prefix, 0.3, device="cpu")) as f:
+    assert f.read() == "s0,s2,s4\ns1,s3,s5\n"
+jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not jax_mods, jax_mods
+print("NO_JAX_OK")
+"""
+
+
+def test_port_runs_without_importing_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT, str(tmp_path)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
