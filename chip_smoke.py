@@ -1,6 +1,7 @@
 """Smoke run of kspider_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed S] [--families F] [--workdir DIR]
+    python3 chip_smoke.py [--seed S] [--families F] [--tiled-families T]
+                          [--workdir DIR]
 
 Phases, each printed on its own line; any failure exits non-zero:
 
@@ -8,18 +9,31 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. build: compiles the Gram kernel from ``kspider_tpu_torch/csrc`` with nvcc;
 3. kernel vs plain: every launch mode of the kernel (all tiles of a
    square, all tiles of a rectangle with distinct sides, upper tiles) at
-   the main path's shapes and at small ragged ones, bit-exact int32 against
-   the plain float64 torch version, each timed with CUDA events;
-4. main path: a synthetic genus-scale index (F families of 8 samples,
+   the dense path's shapes and at small ragged ones, bit-exact int32
+   against the plain float64 torch version, each timed with CUDA events;
+4. dense path: a synthetic genus-scale index (F families of 8 samples,
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
-   and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal,
-   byte for byte, the TSV of the OpenMP host engine on the same CSR; the
-   clusters must equal scipy's and recover the families; the kernel must
-   have launched; jax must never have been imported.
+   and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
+   for byte, the TSV of the OpenMP host engine on the same CSR; the
+   clusters must equal scipy's and recover the families;
+4b. tiled path on the same index: ``pairwise --engine tiled --panel 2048
+   --device-pack force`` (4 panels, 10 pairs); its TSV must equal the dense
+   one and the kernel must have run in both modes (upper tiles for
+   diagonal panel pairs, all tiles for off-diagonal ones);
+5. tiled path at full width: a second index of T families (N = 8 T, above
+   the dense engine's 16,384) through ``pairwise`` with no engine flag (the
+   automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
+   ``cluster --from-index -c 0.2``.  The kernel is first held against its
+   plain version on the path's own first diagonal and off-diagonal chunks.
+   The TSV must equal the OpenMP host engine's, both cluster outputs must
+   equal scipy's and recover the families, and the kernel must have run
+   in both modes.
 
-The line before the last is a JSON object describing the kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
-exits 1 and prints no result.
+jax must never have been imported.  Launch counts are reset to 0 right
+before each path and read right after it.  The line before the last is a
+JSON object describing the kernel; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
+and prints no result.
 """
 
 import argparse
@@ -34,14 +48,15 @@ import time
 import numpy as np
 import torch
 
-REPLACES = "kspider_tpu/ops/pallas_pairwise.py:354"
+REPLACES = "kspider_tpu/ops/pallas_pairwise.py:137"
 ALSO_REPLACES = [
     "kspider_tpu/ops/pallas_pairwise.py:79",
-    "kspider_tpu/ops/pallas_pairwise.py:137",
     "kspider_tpu/ops/pallas_pairwise.py:235",
+    "kspider_tpu/ops/pallas_pairwise.py:354",
 ]
 MEMBERS_PER_FAMILY = 8
 CUTOFF = 0.2
+CLUSTERS_SUFFIX = f"_kSpider_clusters_{CUTOFF * 100.0}%.tsv"
 
 
 def phase(name, ok, detail=""):
@@ -56,13 +71,14 @@ def make_hash_sets(rng, n_families):
     Each family draws a core of 4,500-6,500 hashes; each member keeps
     60-95% of it and adds 800-1,800 hashes of its own, so a sample holds
     3,500-8,000 hashes (a sourmash scaled=1000 sketch of a 3.5-8 Mbp
-    genome).  2,000 cross-family hashes each sit in 16-64 random samples.
-    Within a family the max-containment is about 0.4 or more; across families it is
-    a few hashes in thousands, so families separate at 0.2."""
+    genome).  2,000 cross-family hashes per 8,192 samples each sit in 16-64
+    random samples (about 10 per sample at any N).  Within a family the
+    max-containment is about 0.4 or more; across families it is a few
+    hashes in thousands, so families separate at 0.2."""
     n = n_families * MEMBERS_PER_FAMILY
     core_sizes = rng.integers(4500, 6501, n_families)
     own_sizes = rng.integers(800, 1801, n)
-    n_cross = 2000
+    n_cross = 2000 * n // 8192
     need = int(core_sizes.sum() + own_sizes.sum()) + n_cross
     universe = np.unique(rng.integers(1, 2**63, size=need + need // 50,
                                       dtype=np.int64).astype(np.uint64))
@@ -90,6 +106,25 @@ def make_hash_sets(rng, n_families):
             names.append(f"f{f:04d}_s{i}")
             arrays.append(np.sort(np.concatenate([kept, own, mine])))
     return names, arrays
+
+
+def make_index(rng, n_families, prefix):
+    """Generate, index and write the artifacts of one synthetic collection."""
+    from kspider_tpu.core.index import build_index_from_hash_sets
+    from kspider_tpu.io import artifacts
+
+    t0 = time.perf_counter()
+    names, arrays = make_hash_sets(rng, n_families)
+    index = build_index_from_hash_sets(names, arrays, ksize=21,
+                                       params="kSize:21")
+    del arrays
+    artifacts.write_index_artifacts(prefix, index)
+    deg = index.color_degrees()
+    print(f"[setup] N={index.num_groups} colors={index.num_colors} "
+          f"non-singleton={int((deg >= 2).sum())} "
+          f"postings={len(index.color_members)} "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return index
 
 
 def cuda_ms(fn, reps):
@@ -129,14 +164,133 @@ def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps):
     return err, ms, plain_ms
 
 
+def reset_counts(cp):
+    cp.LAUNCHES = 0
+    for mode in cp.LAUNCHES_BY_MODE:
+        cp.LAUNCHES_BY_MODE[mode] = 0
+
+
+def read_counts(cp):
+    return dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)
+
+
+def run_cli(cli, *args):
+    t0 = time.perf_counter()
+    cli.main(list(args), standalone_mode=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def host_reference_tsv(index, ref_prefix, prefix, required):
+    """The OpenMP host engine's pairwise TSV (and namesMap) for ``index``."""
+    from kspider_tpu.io import native
+    from kspider_tpu_torch.core import pairwise as core_pairwise
+    from kspider_tpu_torch.ops import pairwise as pw
+
+    t0 = time.perf_counter()
+    if native.available():
+        engine = "native OpenMP host engine"
+        ref = native.shared_kmer_matrix(index.color_offsets, index.color_members,
+                                        index.color_counts, index.num_groups)
+    elif required:
+        phase("host reference", False,
+              f"native OpenMP engine unavailable: {native.load_error()!r}")
+    else:
+        engine = "numpy host reference (native library unavailable)"
+        ref = pw.shared_kmer_matrix_numpy(index.color_offsets, index.color_members,
+                                          index.color_counts, index.num_groups)
+    core_pairwise.write_pairwise_tsv(ref_prefix, index, ref)
+    del ref
+    shutil.copy(prefix + ".namesMap", ref_prefix + ".namesMap")
+    return engine, time.perf_counter() - t0
+
+
+def check_clusters(out, ref_out, n_families, label):
+    phase(f"{label} == scipy", filecmp.cmp(out, ref_out, shallow=False))
+    with open(out) as f:
+        clusters = [line.strip().split(",") for line in f if line.strip()]
+    families_ok = len(clusters) == n_families and all(
+        len(c) == MEMBERS_PER_FAMILY and len({s.split("_")[0] for s in c}) == 1
+        for c in clusters)
+    phase(f"{label} recover the families", families_ok,
+          f"{len(clusters)} clusters for {n_families} families")
+
+
+def tiled_chunk_inputs(plan, p, dev):
+    """The first chunk of panel pair ``p`` as the tiled path packs it, with
+    the default 1,024-color blocks."""
+    from kspider_tpu_torch.ops import cuda_pairwise as cp
+    from kspider_tpu_torch.ops import pairwise as pw
+    from kspider_tpu_torch.ops import tiled_pairwise as ttp
+
+    block = 1024
+    pk = int(plan.pair_keys[p])
+    pi, pj = pk // plan.n_panels, pk % plan.n_panels
+    sup = pw._MAX_COLORS_PER_CALL - pw._MAX_COLORS_PER_CALL % block
+    e0 = int(plan.pair_off[p])
+    e1 = min(int(plan.pair_off[p + 1]), e0 + sup)
+    sa, sb = plan.ent_sega[e0:e1], plan.ent_segb[e0:e1]
+    nb = -(-(e1 - e0) // block)
+    panel_pad = -(-plan.panel // cp.TILE) * cp.TILE
+    bits_a = torch.from_numpy(ttp._pack_panel_side(
+        plan, pi, sa, nb, block, panel_pad)).to(dev)
+    bits_b = bits_a if pi == pj else torch.from_numpy(ttp._pack_panel_side(
+        plan, pj, sb, nb, block, panel_pad)).to(dev)
+    wl = torch.from_numpy(ttp._pad_limbs(
+        plan.w_limbs[plan.seg_color[sa]], nb, block)).to(dev)
+    return bits_a, bits_b, wl, panel_pad
+
+
+def gram_time_by_mode(cp, ttp, plan, dev):
+    """Device time of the Gram kernel on one rerun of the tiled pairs, split
+    by launch mode with CUDA events around each launch; from torch.profiler
+    its total, the device's busy time over all kernels and copies, and the
+    rerun's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real = cp.cooccurrence_tiles
+    events = {"upper": [], "all": []}
+
+    def timed(bits_i, bits_j, wl, ti, tj, *, tile, out):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(bits_i, bits_j, wl, ti, tj, tile=tile, out=out)
+        end.record()
+        events["upper" if bits_j is bits_i else "all"].append((start, end))
+        return out
+
+    cp.cooccurrence_tiles = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
+                pass
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        cp.cooccurrence_tiles = real
+    by_mode = {mode: (len(ev), sum(s.elapsed_time(e) for s, e in ev))
+               for mode, ev in events.items()}
+    averages = prof.key_averages()
+    prof_ms = sum(getattr(e, "device_time_total", 0) for e in averages
+                  if "gram_int8" in e.key) / 1000.0
+    busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in averages) / 1000.0
+    return by_mode, prof_ms, busy_ms, wall_ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--families", type=int, default=1024,
-                    help="families of 8 samples (N = 8 x families)")
+                    help="families of 8 samples in the dense phase (N = 8 x families)")
+    ap.add_argument("--tiled-families", type=int, default=4096,
+                    help="families of 8 samples in the tiled phase; 8 x this "
+                         "must exceed 16,384")
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), ".smoke"))
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -162,33 +316,25 @@ def main():
           f"({os.path.basename(_build.library_path())})")
 
     # ---- set-up: synthetic index ----------------------------------------
-    from kspider_tpu.core.index import build_index_from_hash_sets
-    from kspider_tpu.io import artifacts, native
+    from kspider_tpu_torch.cli.main import cli
     from kspider_tpu_torch.core import cluster as core_cluster
-    from kspider_tpu_torch.core import pairwise as core_pairwise
     from kspider_tpu_torch.ops import pairwise as pw
+    from kspider_tpu_torch.ops import tiled_pairwise as ttp
 
+    if args.tiled_families * MEMBERS_PER_FAMILY <= 16384:
+        phase("arguments", False, "the tiled phase needs N > 16,384")
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
-    t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    names, arrays = make_hash_sets(rng, args.families)
-    index = build_index_from_hash_sets(names, arrays, ksize=21,
-                                       params="kSize:21")
-    del arrays
     prefix = os.path.join(args.workdir, "smoke")
-    artifacts.write_index_artifacts(prefix, index)
+    index = make_index(rng, args.families, prefix)
     n = index.num_groups
     deg = index.color_degrees()
     multi = deg >= 2
     w_multi = index.color_counts[multi]
-    n_limbs = pw.weight_limbs(w_multi).shape[1]
-    print(f"[setup] N={n} colors={index.num_colors} non-singleton={int(multi.sum())} "
-          f"postings={len(index.color_members)} limbs={n_limbs} "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     # ---- 3. kernel vs plain ---------------------------------------------
-    # the main path's first chunk: CHUNK_BLOCKS blocks of non-singleton colors
+    # the dense path's first chunk: CHUNK_BLOCKS blocks of non-singleton colors
     keep = np.flatnonzero(multi)[: cp.CHUNK_BLOCKS * cp.BLOCK]
     offs = np.zeros(len(keep) + 1, dtype=np.int64)
     np.cumsum(deg[keep], out=offs[1:])
@@ -209,7 +355,7 @@ def main():
     nt = n_pad // cp.TILE
     results = []
     modes = [
-        ("upper tiles (main path)", bits, bits, wl, *cp.upper_triangle_tiles(nt), n_pad, n_pad, 5),
+        ("upper tiles (dense path)", bits, bits, wl, *cp.upper_triangle_tiles(nt), n_pad, n_pad, 5),
         ("all tiles, square", bits, bits, wl, *cp.all_tiles(nt, nt), n_pad, n_pad, 5),
         ("all tiles, rect", bits_a, bits_b, wl, *cp.all_tiles(nt // 2, nt - nt // 2),
          8 * half, n_pad - 8 * half, 5),
@@ -220,9 +366,9 @@ def main():
         bj = torch.from_numpy(rng.integers(0, 256, (nb, npad_j // 8, block), dtype=np.uint8)).to(dev)
         w = torch.from_numpy(rng.integers(0, 128, (nb, L, block), dtype=np.int8)).to(dev)
         ti_, tj_ = npad_i // 128, npad_j // 128
-        modes.append((f"all tiles, rect, small", bi, bj, w, *cp.all_tiles(ti_, tj_), npad_i, npad_j, 20))
-        modes.append((f"all tiles, square, small", bi, bi, w, *cp.all_tiles(ti_, ti_), npad_i, npad_i, 20))
-        modes.append((f"upper tiles, small", bi, bi, w, *cp.upper_triangle_tiles(ti_), npad_i, npad_i, 20))
+        modes.append(("all tiles, rect, small", bi, bj, w, *cp.all_tiles(ti_, tj_), npad_i, npad_j, 20))
+        modes.append(("all tiles, square, small", bi, bi, w, *cp.all_tiles(ti_, ti_), npad_i, npad_i, 20))
+        modes.append(("upper tiles, small", bi, bi, w, *cp.upper_triangle_tiles(ti_), npad_i, npad_i, 20))
     for label, *rest in modes:
         results.append(compare_mode(cp, label, *rest))
     max_err = max(r[0] for r in results)
@@ -232,22 +378,17 @@ def main():
     phase("kernel vs plain", max_err == 0,
           f"{len(results)} cases, max_abs_err={max_err} (exact int32 required)")
 
-    # ---- 4. main path ---------------------------------------------------
-    from kspider_tpu_torch.cli.main import cli
-
-    cp.LAUNCHES = 0
-    t0 = time.perf_counter()
-    cli.main(["pairwise", "-i", prefix, "--device", "cuda"], standalone_mode=False)
-    torch.cuda.synchronize()
-    pairwise_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cli.main(["cluster", "-i", prefix, "-c", str(CUTOFF), "--device", "cuda"],
-             standalone_mode=False)
-    cluster_s = time.perf_counter() - t0
-    launches = cp.LAUNCHES
-    print(f"[main] pairwise stage {pairwise_s:.3f} s, cluster stage "
-          f"{cluster_s:.3f} s, kernel launches {launches}", flush=True)
-    phase("kernel launched on the main path", launches > 0, f"LAUNCHES={launches}")
+    # ---- 4. dense path --------------------------------------------------
+    launches = {}
+    reset_counts(cp)
+    pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    cluster_s = run_cli(cli, "cluster", "-i", prefix, "-c", str(CUTOFF),
+                        "--device", "cuda")
+    launches["dense"] = read_counts(cp)
+    print(f"[dense] pairwise stage {pairwise_s:.3f} s, cluster stage "
+          f"{cluster_s:.3f} s, kernel launches {launches['dense']}", flush=True)
+    phase("kernel launched on the dense path", launches["dense"]["upper"] > 0,
+          f"{launches['dense']}")
 
     # kernel time of the pairwise stage's Gram product, from a profiled rerun
     from torch.profiler import ProfilerActivity, profile
@@ -259,41 +400,111 @@ def main():
     kernel_ms = sum(
         getattr(e, "device_time_total", 0) for e in prof.key_averages()
         if "gram_int8" in e.key) / 1000.0
-    print(f"[main] Gram kernel time in one pairwise product: "
+    print(f"[dense] Gram kernel time in one pairwise product: "
           f"{f'{kernel_ms:.3f} ms' if kernel_ms > 0 else 'not measured'}",
           flush=True)
 
     ref_prefix = os.path.join(args.workdir, "ref")
-    t0 = time.perf_counter()
-    if native.available():
-        ref_engine = "native OpenMP host engine"
-        ref = native.shared_kmer_matrix(index.color_offsets, index.color_members,
-                                        index.color_counts, n)
-    else:
-        ref_engine = "numpy host reference (native library unavailable)"
-        ref = pw.shared_kmer_matrix_numpy(index.color_offsets, index.color_members,
-                                          index.color_counts, n)
-    core_pairwise.write_pairwise_tsv(ref_prefix, index, ref)
-    del ref
-    rows = sum(1 for _ in open(prefix + "_kSpider_pairwise.tsv")) - 1
-    same = filecmp.cmp(prefix + "_kSpider_pairwise.tsv",
-                       ref_prefix + "_kSpider_pairwise.tsv", shallow=False)
-    phase("pairwise TSV == host engine", same,
-          f"{rows} rows, reference: {ref_engine} ({time.perf_counter() - t0:.3f} s)")
-
-    shutil.copy(prefix + ".namesMap", ref_prefix + ".namesMap")
-    out = prefix + f"_kSpider_clusters_{CUTOFF * 100.0}%.tsv"
+    ref_engine, ref_s = host_reference_tsv(index, ref_prefix, prefix, False)
+    tsv, ref_tsv = prefix + "_kSpider_pairwise.tsv", ref_prefix + "_kSpider_pairwise.tsv"
+    rows = sum(1 for _ in open(tsv)) - 1
+    phase("pairwise TSV == host engine", filecmp.cmp(tsv, ref_tsv, shallow=False),
+          f"{rows} rows, reference: {ref_engine} ({ref_s:.3f} s)")
     ref_out = core_cluster.cluster_index(ref_prefix, CUTOFF, device=None)
-    phase("clusters == scipy", filecmp.cmp(out, ref_out, shallow=False))
-    with open(out) as f:
-        clusters = [line.strip().split(",") for line in f if line.strip()]
-    families_ok = len(clusters) == args.families and all(
-        len(c) == MEMBERS_PER_FAMILY and len({s.split("_")[0] for s in c}) == 1
-        for c in clusters)
-    phase("clusters recover the families", families_ok,
-          f"{len(clusters)} clusters for {args.families} families")
+    check_clusters(prefix + CLUSTERS_SUFFIX, ref_out, args.families, "clusters")
+
+    # ---- 4b. tiled path on the dense index -------------------------------
+    dense_tsv = os.path.join(args.workdir, "dense_pairwise.tsv")
+    shutil.copy(tsv, dense_tsv)
+    reset_counts(cp)
+    tiled_s = run_cli(cli, "pairwise", "-i", prefix, "--engine", "tiled",
+                      "--panel", "2048", "--device", "cuda",
+                      "--device-pack", "force")
+    launches["tiled_dense_index"] = read_counts(cp)
+    print(f"[tiled N={n}] pairwise stage {tiled_s:.3f} s, kernel launches "
+          f"{launches['tiled_dense_index']}", flush=True)
+    phase("tiled TSV == dense TSV", filecmp.cmp(tsv, dense_tsv, shallow=False))
+    phase("tiled path launched both modes",
+          launches["tiled_dense_index"]["upper"] > 0
+          and launches["tiled_dense_index"]["all"] > 0,
+          f"{launches['tiled_dense_index']}")
+    del index
+    shutil.rmtree(args.workdir, ignore_errors=True)
+    os.makedirs(args.workdir)
+
+    # ---- 5. tiled path at full width -------------------------------------
+    big = os.path.join(args.workdir, "big")
+    index = make_index(rng, args.tiled_families, big)
+    n_big = index.num_groups
+    t0 = time.perf_counter()
+    plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
+                                index.color_counts, n_big, 4096)
+    print(f"[tiled N={n_big}] panel plan: {plan.n_panels} panels, "
+          f"{len(plan.pair_keys)} pairs, {len(plan.ent_sega)} entries, "
+          f"L={plan.n_limbs}, {time.perf_counter() - t0:.3f} s", flush=True)
+    # the kernel vs plain on the path's own first diagonal and off-diagonal chunks
+    keys = plan.pair_keys.tolist()
+    tiled_modes = {}
+    for label, p in (("upper tiles (tiled diagonal pair (0,0))", keys.index(0)),
+                     ("all tiles, rect (tiled pair (0,1))", keys.index(1))):
+        bi, bj, wl_t, panel_pad = tiled_chunk_inputs(plan, p, dev)
+        nt = panel_pad // cp.TILE
+        tiles = cp.upper_triangle_tiles(nt) if bj is bi else cp.all_tiles(nt, nt)
+        tiled_modes["upper" if bj is bi else "all"] = compare_mode(
+            cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5)
+        del bi, bj, wl_t
+    torch.cuda.empty_cache()
+    tiled_err = max(r[0] for r in tiled_modes.values())
+    max_err = max(max_err, tiled_err)
+    phase("kernel vs plain at the tiled shapes", tiled_err == 0,
+          f"max_abs_err={tiled_err} (exact int32 required)")
+
+    reset_counts(cp)
+    pairwise_s = run_cli(cli, "pairwise", "-i", big, "--device", "cuda")
+    launches["tiled"] = read_counts(cp)
+    print(f"[tiled N={n_big}] pairwise stage {pairwise_s:.3f} s, kernel "
+          f"launches {launches['tiled']}", flush=True)
+    phase("auto switch took the tiled path in both modes",
+          launches["tiled"]["upper"] > 0 and launches["tiled"]["all"] > 0,
+          f"{launches['tiled']}")
+    cluster_s = run_cli(cli, "cluster", "-i", big, "-c", str(CUTOFF),
+                        "--device", "cuda")
+    tsv_clusters = os.path.join(args.workdir, "tsv_clusters.tsv")
+    shutil.move(big + CLUSTERS_SUFFIX, tsv_clusters)
+    reset_counts(cp)
+    from_index_s = run_cli(cli, "cluster", "-i", big, "--from-index", "-c",
+                           str(CUTOFF), "--device", "cuda")
+    launches["from_index"] = read_counts(cp)
+    print(f"[tiled N={n_big}] cluster stage {cluster_s:.3f} s, cluster "
+          f"--from-index {from_index_s:.3f} s (kernel launches "
+          f"{launches['from_index']})", flush=True)
+    phase("cluster --from-index launched both modes",
+          launches["from_index"]["upper"] > 0 and launches["from_index"]["all"] > 0)
+
+    by_mode, prof_ms, busy_ms, wall_ms = gram_time_by_mode(cp, ttp, plan, dev)
+    print(f"[tiled N={n_big}] Gram kernel device time on the tiled pairs: "
+          + ", ".join(f"{m} {c} launches {t:.3f} ms" for m, (c, t) in by_mode.items())
+          + f"; torch.profiler total "
+          f"{f'{prof_ms:.3f} ms' if prof_ms > 0 else 'not measured'}", flush=True)
+    if busy_ms > 0:
+        print(f"[tiled N={n_big}] engine rerun without the TSV: device busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+              f"(idle share {1 - busy_ms / wall_ms:.4f})", flush=True)
+    del plan
+
+    big_ref = os.path.join(args.workdir, "big_ref")
+    ref_engine, ref_s = host_reference_tsv(index, big_ref, big, True)
+    tsv, ref_tsv = big + "_kSpider_pairwise.tsv", big_ref + "_kSpider_pairwise.tsv"
+    rows = sum(1 for _ in open(tsv)) - 1
+    phase("tiled TSV == host engine", filecmp.cmp(tsv, ref_tsv, shallow=False),
+          f"{rows} rows, reference: {ref_engine} ({ref_s:.3f} s)")
+    ref_out = core_cluster.cluster_index(big_ref, CUTOFF, device=None)
+    check_clusters(tsv_clusters, ref_out, args.tiled_families, "clusters from the TSV")
+    check_clusters(big + CLUSTERS_SUFFIX, ref_out, args.tiled_families,
+                   "clusters --from-index")
     phase("no jax", "jax" not in sys.modules)
     shutil.rmtree(args.workdir, ignore_errors=True)
+    print(f"[smoke] wall {time.perf_counter() - t_start:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "gram_int8_tiles",
@@ -301,10 +512,21 @@ def main():
         "source": "kspider_tpu_torch/csrc/gram_int8.cu",
         "replaces": REPLACES,
         "also_replaces": ALSO_REPLACES,
-        "launches": launches,
+        "launches": sum(c["total"] for c in launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
+        "ms": tiled_modes["all"][1],
+        "plain_ms": tiled_modes["all"][2],
+        "ms_by_mode": {
+            "tiled_upper": tiled_modes["upper"][1],
+            "tiled_all": tiled_modes["all"][1],
+            "dense_upper": main_ms,
+        },
+        "plain_ms_by_mode": {
+            "tiled_upper": tiled_modes["upper"][2],
+            "tiled_all": tiled_modes["all"][2],
+            "dense_upper": main_plain_ms,
+        },
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -6,8 +6,8 @@ of ``kspider_tpu/cli/main.py``, plus ``--device`` (default ``cuda``).
 commands of the JAX package (sketch, index, hidden FASTA indexers, export,
 tools) are registered unchanged, except that ``index --device-build``,
 which would load jax, is refused.  Options that need code not ported yet
-(tiled engine, multi-process runs) are refused with a message naming the
-ROADMAP item that ports them.
+(multi-process runs, the device index build) are refused with a message
+naming the ROADMAP item that ports them.
 """
 
 import os
@@ -65,10 +65,10 @@ for _cmd, _priority in (
 @click.option("-s", "--scale", "sourmash_scale", required=False, default=0, type=int, help="scale used in creating sourmash sigs (only when using --estimate-ani)")
 @click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use the host (numpy) engine instead of the GPU kernel")
 @click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the Gram kernel (cuda, cuda:N or cpu)")
-@click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "tiled"]), help="co-occurrence engine (tiled = panel-streamed, not ported yet)")
+@click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "tiled"]), help="co-occurrence engine (tiled = panel-streamed, any N; auto takes it above 16,384 samples on a device)")
 @click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width for the tiled engine")
 @click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="emit only pairs with at least this many shared k-mers")
-@click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="device-side bitmask packing (tiled engine; the dense engine packs on the host)")
+@click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="ship sparse panel sides as posting keys and pack them on the device (tiled engine; default: env KSPIDER_DEVICE_PACK or auto; the dense engine packs on the host)")
 @click.option("--coordinator", "coordinator", default=None, type=click.STRING, help="coordinator address for multi-process runs (not ported yet)")
 @click.option("--num-processes", "num_processes", default=None, type=int, help="total coordinated processes (not ported yet)")
 @click.option("--process-id", "process_id", default=None, type=int, help="this process's id in [0, num-processes)")
@@ -76,10 +76,6 @@ for _cmd, _priority in (
 def pairwise(ctx, index_prefix, ani, user_threads, sourmash_scale, force_cpu, device_name, engine, panel, min_shared, device_pack, coordinator, num_processes, process_id):
     """Generate containment pairwise matrix."""
     log = ctx.obj
-    if engine == "tiled":
-        _not_ported(log, "--engine tiled", "Tiled engine")
-    if device_pack == "force":
-        _not_ported(log, "--device-pack force", "Tiled engine")
     n_procs = num_processes or int(os.environ.get("KSPIDER_NUM_PROCESSES", "1"))
     if coordinator or os.environ.get("KSPIDER_COORDINATOR") or n_procs > 1:
         _not_ported(log, "--coordinator / --num-processes > 1",
@@ -91,12 +87,10 @@ def pairwise(ctx, index_prefix, ani, user_threads, sourmash_scale, force_cpu, de
         log.INFO("Constructing the containment pairwise matrix.")
         if sourmash_scale:
             log.WARNING("No need to provide -s/--scale when running this command.")
-        try:
-            core_pairwise.run_pairwise(
-                index_prefix, device=device, min_shared=min_shared
-            )
-        except NotImplementedError as exc:
-            log.ERROR(str(exc))
+        core_pairwise.run_pairwise(
+            index_prefix, device=device, engine=engine, panel=panel,
+            min_shared=min_shared, device_pack=device_pack,
+        )
         log.SUCCESS("Done.")
         return
 
@@ -119,9 +113,9 @@ def pairwise(ctx, index_prefix, ani, user_threads, sourmash_scale, force_cpu, de
 @click.option("-c", "--cutoff", required=False, type=click.FloatRange(0, 1, clamp=False), default=0.0, show_default=True, help="cluster sequences with (containment > cutoff)")
 @click.option("-i", "--index-prefix", "index_prefix", required=True, type=click.STRING, help="Index file prefix")
 @click.option("-d", "--dist-type", "distance_type", required=False, default="max_cont", show_default=True, type=click.STRING, help="select from ['min_cont', 'avg_cont', 'max_cont', 'ani']")
-@click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use scipy connected-components instead of the GPU label propagation")
-@click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the connected-components rounds (cuda, cuda:N or cpu)")
-@click.option("--from-index", "from_index", is_flag=True, default=False, help="cluster straight from the index via the panel-streamed engine (not ported yet)")
+@click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use scipy connected-components instead of the GPU label propagation (with --from-index, also the CPU Gram product)")
+@click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the connected-components rounds, and of the Gram kernel with --from-index (cuda, cuda:N or cpu)")
+@click.option("--from-index", "from_index", is_flag=True, default=False, help="cluster straight from the index via the panel-streamed engine (no pairwise TSV round-trip; min/avg/max metrics only)")
 @click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width (--from-index mode)")
 @click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="ignore pairs below this many shared k-mers (--from-index mode)")
 @click.pass_context
@@ -130,9 +124,19 @@ def cluster(ctx, index_prefix, cutoff, distance_type, force_cpu, device_name, fr
     from kspider_tpu_torch.core import cluster as core_cluster
 
     log = ctx.obj
-    if from_index:
-        _not_ported(log, "--from-index", "Tiled engine")
     device = _resolve(log, device_name, force_cpu)
+    if from_index:
+        from kspider_tpu.io import artifacts, npz_index
+
+        index = npz_index.load(index_prefix)
+        if index is None:
+            index = artifacts.load_index_artifacts(index_prefix)
+        out = core_cluster.cluster_from_index(
+            index, index_prefix, cutoff, dist_type=distance_type,
+            device=device, panel=panel, min_shared=min_shared, logger=log,
+        )
+        log.SUCCESS(f"Clusters written to {out}")
+        return
     log.INFO("Building the main graph...")
     out = core_cluster.cluster_index(
         index_prefix, cutoff, dist_type=distance_type, device=device, logger=log

@@ -5,9 +5,9 @@ Counterpart of ``kspider_tpu/core/cluster.py`` (the reference's
 an edge for every pairwise row whose selected distance column * 100 >=
 cutoff, connected components written one comma-joined cluster per line to
 ``{prefix}_kSpider_clusters_{cutoff*100}%.tsv``.  The TSV is read by the
-shared chunked reader of ``kspider_tpu.io.pairwise_tsv``.  Clustering
-straight from the index (``--from-index``) needs the panel-streamed engine
-and is not ported yet.
+shared chunked reader of ``kspider_tpu.io.pairwise_tsv``.
+:func:`cluster_from_index` (``--from-index``) skips the TSV and clusters
+straight from the panel-streamed engine's pair stream.
 """
 
 import os
@@ -88,6 +88,101 @@ def fold_edges_into_labels(labels, src, dst, n, cc_fn):
     return np.asarray(cc_fn(src_all, dst_all, n), dtype=np.int32)
 
 
+def _cc_fn(device):
+    """Connected components on ``device`` (torch), or scipy for None."""
+    if device is None:
+        return cc_ops.connected_components_scipy
+
+    def cc_fn(src, dst, n_nodes):
+        return cc_ops.connected_components(src, dst, n_nodes, device=device)
+
+    return cc_fn
+
+
+def cluster_from_index(
+    index,
+    prefix: str,
+    cutoff: float,
+    dist_type: str = "max_cont",
+    *,
+    device,
+    panel: int = 4096,
+    block: int = 1024,
+    min_shared: int = 1,
+    logger: Optional[Logger] = None,
+    edge_batch: int = EDGE_CHUNK_ROWS,
+) -> str:
+    """Cluster from the panel-streamed engine's pairs, with no pairwise TSV;
+    returns the output file path.
+
+    ``device`` runs the Gram kernel and the CC on a torch device; None runs
+    the engine's plain version on the CPU and scipy's CC.  The cutoff is
+    applied to the full-precision float32 containment, so a pair sitting
+    exactly on a %g rounding boundary of the TSV may classify differently
+    from :func:`cluster_index`.  ``ani`` needs the ani column file and is
+    refused."""
+    from kspider_tpu_torch.core import pairwise as core_pw
+    from kspider_tpu_torch.ops import tiled_pairwise as tp
+
+    log = logger or Logger(quiet=True)
+    if dist_type == "ani":
+        log.ERROR("--from-index clustering does not support the ani metric")
+        raise ValueError("ani unsupported in from-index mode")
+    if dist_type not in DISTANCE_TO_COL:
+        log.ERROR("unknown distance!")
+        raise ValueError("unknown distance")
+
+    cutoff_percent = float(cutoff) * 100.0
+    n = index.num_groups
+    counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
+    cc_fn = _cc_fn(device)
+    plan = tp.build_panel_plan(
+        index.color_offsets, index.color_members, index.color_counts,
+        n, panel,
+    )
+    labels = np.arange(max(n, 1), dtype=np.int32)
+    buf_src: List[np.ndarray] = []
+    buf_dst: List[np.ndarray] = []
+    pending = 0
+
+    def fold():
+        nonlocal labels, pending
+        if not buf_src:
+            return
+        labels = fold_edges_into_labels(
+            labels, np.concatenate(buf_src), np.concatenate(buf_dst), n, cc_fn
+        )
+        buf_src.clear()
+        buf_dst.clear()
+        pending = 0
+
+    log.INFO("Clustering from the panel-streamed engine (no TSV)...")
+    for _, _, gi, gj, vals in tp.iter_panel_pairs(
+        plan, device="cpu" if device is None else device, block=block,
+        min_shared=min_shared,
+    ):
+        cmin, cavg, cmax = core_pw.containment_columns(
+            vals, counts[gi], counts[gj]
+        )
+        d = {3: cmin, 4: cavg, 5: cmax}[DISTANCE_TO_COL[dist_type]]
+        keep = d.astype(np.float64) * 100.0 >= cutoff_percent
+        if keep.any():
+            buf_src.append(gi[keep].astype(np.int32))
+            buf_dst.append(gj[keep].astype(np.int32))
+            pending += int(keep.sum())
+            if pending >= edge_batch:
+                fold()
+    fold()
+
+    comps = cc_ops.labels_to_clusters(labels[:n])
+    log.INFO(f"number of clusters: {len(comps)}")
+    out_path = prefix + f"_kSpider_clusters_{cutoff_percent}%.tsv"
+    with open(out_path, "w") as f:
+        for comp in comps:
+            f.write(",".join(index.names[int(node)] for node in comp) + "\n")
+    return out_path
+
+
 def cluster_index(
     prefix: str,
     cutoff: float,
@@ -120,12 +215,7 @@ def cluster_index(
         )
         raise FileNotFoundError("ani column file missing")
 
-    if device is None:
-        cc_fn = cc_ops.connected_components_scipy
-    else:
-        def cc_fn(src, dst, n_nodes):
-            return cc_ops.connected_components(src, dst, n_nodes, device=device)
-
+    cc_fn = _cc_fn(device)
     log.INFO("Clustering...")
     labels = np.arange(max(n, 1), dtype=np.int32)
     for src, dst in iter_pairwise_edge_chunks(

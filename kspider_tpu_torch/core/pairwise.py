@@ -10,11 +10,13 @@ contract (``kSpider::pairwise``):
   shared count and min/avg/max containment in float32, printed like C++'s
   ``ostream << float`` (6 significant digits).
 
-The TSV is written by the shared native writer of ``kspider_tpu.io.native``
-(pure-Python fallback below), so both packages emit the same bytes for the
-same matrix.  Only the dense engine is ported: indexes above
-``AUTO_TILED_THRESHOLD`` samples need the panel-streamed engine, which is
-not ported yet, and are refused.
+The TSV is written by the shared native writers of ``kspider_tpu.io.native``
+(pure-Python fallbacks below), so both packages emit the same bytes for the
+same pairs.  Up to ``AUTO_TILED_THRESHOLD`` samples a torch device runs the
+dense engine (one NxN matrix); above it, or with ``engine="tiled"``, the
+panel-streamed engine writes the TSV panel row by panel row.  ``--cpu``
+(``device=None``) runs the numpy dense engine at any size, as kspider_tpu
+does.
 """
 
 import time
@@ -100,6 +102,54 @@ def write_pairwise_tsv(
     return int(nz.sum())
 
 
+def write_pairwise_rows_coo(
+    path: str,
+    gi: np.ndarray,
+    gj: np.ndarray,
+    shared: np.ndarray,
+    kmer_counts: np.ndarray,
+    header: bool,
+) -> None:
+    """Append pre-sorted COO pair rows (0-based ids) to the pairwise TSV;
+    ``header=True`` truncates and writes the header line first.  Same row
+    format as :func:`write_pairwise_tsv`."""
+    from kspider_tpu.io import native
+
+    if native.enabled():
+        try:
+            if not native.available():
+                raise RuntimeError(
+                    f"native library failed to load: {native.load_error()!r}"
+                )
+            native.write_pairwise_coo(path, gi, gj, shared, kmer_counts, header)
+            return
+        except native.NativeRequiredError:
+            raise
+        except Exception as exc:
+            native.report_fallback("write_pairwise_coo", exc)
+    counts = np.asarray(kmer_counts, dtype=np.int64)
+    cmin, cavg, cmax = containment_columns(
+        np.asarray(shared, dtype=np.int64), counts[gi], counts[gj]
+    )
+    lines = []
+    if header:
+        lines.append(
+            "source_1\tsource_2\tshared_kmers\tmin_containment\tavg_containment\tmax_containment"
+        )
+    for a, b, sh, c1, c2, c3 in zip(
+        (np.asarray(gi) + 1).tolist(), (np.asarray(gj) + 1).tolist(),
+        np.asarray(shared).tolist(), cmin.tolist(), cavg.tolist(),
+        cmax.tolist(),
+    ):
+        lines.append(
+            f"{a}\t{b}\t{sh}\t{format_float_cpp(c1)}\t{format_float_cpp(c2)}\t{format_float_cpp(c3)}"
+        )
+    with open(path, "w" if header else "a") as f:
+        if lines:
+            f.write("\n".join(lines))
+            f.write("\n")
+
+
 def compute_shared_matrix(index: ColorIndex, *, device) -> np.ndarray:
     """S[i, j] = number of k-mer hashes shared by groups i and j (int64).
 
@@ -116,13 +166,21 @@ def run_pairwise(
     index: Optional[ColorIndex] = None,
     *,
     device,
-    echo_timers: bool = True,
+    engine: str = "auto",
+    panel: int = 4096,
     min_shared: int = 1,
-) -> np.ndarray:
+    device_pack: Optional[str] = None,
+    echo_timers: bool = True,
+) -> Optional[np.ndarray]:
     """Full pairwise stage: load artifacts if needed, compute, emit TSVs.
 
     ``device`` is a torch device for the Gram kernel, or None for the numpy
-    host engine.  Returns the dense shared matrix."""
+    host engine.  ``engine="tiled"``, or ``"auto"`` with a device and more
+    than ``AUTO_TILED_THRESHOLD`` samples, takes the panel-streamed engine
+    (on the CPU when ``device`` is None) with ``panel``-wide panels and
+    ``device_pack`` (see ``ops.bitmask.device_pack_policy``), and returns
+    None: the pairs then live only in the TSV.  Otherwise returns the dense
+    shared matrix."""
     t0 = time.perf_counter()
     if index is None:
         from kspider_tpu.io import artifacts, npz_index
@@ -132,13 +190,6 @@ def run_pairwise(
             index = artifacts.load_index_artifacts(prefix)
     if echo_timers:
         print(f"mapping colors to groups: {time.perf_counter() - t0:.6g} secs")
-    if index.num_groups > AUTO_TILED_THRESHOLD:
-        raise NotImplementedError(
-            f"{index.num_groups} samples exceed the dense engine's "
-            f"{AUTO_TILED_THRESHOLD}; the panel-streamed (tiled) engine is "
-            "not ported to kspider_tpu_torch yet (ROADMAP queue 1, tiled "
-            "engine) -- use kspider_tpu for this index"
-        )
 
     t0 = time.perf_counter()
     write_seq_to_kmers_tsv(prefix, index)
@@ -146,6 +197,24 @@ def run_pairwise(
         print(f"kmer counting: {time.perf_counter() - t0:.6g} secs")
 
     t0 = time.perf_counter()
+    tiled = engine == "tiled" or (
+        engine == "auto" and device is not None
+        and index.num_groups > AUTO_TILED_THRESHOLD
+    )
+    if tiled:
+        from kspider_tpu_torch.ops import tiled_pairwise
+
+        n_rows = tiled_pairwise.stream_pairwise_tsv(
+            index, prefix, device="cpu" if device is None else device,
+            panel=panel, min_shared=min_shared, device_pack=device_pack,
+            echo_progress=echo_timers,
+        )
+        if echo_timers:
+            print(
+                f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"
+            )
+            print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
+        return None
     shared = compute_shared_matrix(index, device=device)
     if echo_timers:
         print(

@@ -17,6 +17,8 @@ The TPU's VMEM budgets (``best_strip``, ``sym_fits``, ``auto_tile``) have
 no counterpart: the engine always computes upper tiles and mirrors them.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -33,6 +35,10 @@ CHUNK_BLOCKS = 64
 
 #: number of CUDA kernel launches made by :func:`cooccurrence_tiles`
 LAUNCHES = 0
+#: the same launches by tile list: "upper" (upper tiles of one side, the
+#: TPU's tri/sym kernels), "all" (every tile of a grid, square or rect) or
+#: "list" (any other list)
+LAUNCHES_BY_MODE = {"upper": 0, "all": 0, "list": 0}
 
 
 def pack_inputs(
@@ -56,18 +62,49 @@ def pack_inputs(
     return bits_t, wl_t
 
 
+def _read_only(*arrays):
+    for a in arrays:
+        a.flags.writeable = False
+    return arrays
+
+
+@functools.lru_cache(maxsize=None)
 def upper_triangle_tiles(nt: int):
     """(tile_i, tile_j) int32 arrays enumerating the i <= j tile pairs,
-    row-major."""
+    row-major.  Cached and read-only."""
     ti, tj = np.triu_indices(nt)
-    return ti.astype(np.int32), tj.astype(np.int32)
+    return _read_only(ti.astype(np.int32), tj.astype(np.int32))
 
 
+@functools.lru_cache(maxsize=None)
 def all_tiles(nti: int, ntj: int):
     """(tile_i, tile_j) int32 arrays enumerating every tile of an
-    nti x ntj grid, row-major."""
+    nti x ntj grid, row-major.  Cached and read-only."""
     ti, tj = np.meshgrid(np.arange(nti), np.arange(ntj), indexing="ij")
-    return ti.ravel().astype(np.int32), tj.ravel().astype(np.int32)
+    return _read_only(ti.ravel().astype(np.int32), tj.ravel().astype(np.int32))
+
+
+def _tile_mode(same_side: bool, ti, tj, nti: int, ntj: int):
+    """The launch mode of a tile list: ("upper", nt) for the upper tiles of
+    one side, ("all", nti, ntj) for every tile of the grid, else None."""
+    if same_side and nti == ntj and len(ti) == nti * (nti + 1) // 2:
+        ui, uj = upper_triangle_tiles(nti)
+        if np.array_equal(ti, ui) and np.array_equal(tj, uj):
+            return ("upper", nti)
+    if len(ti) == nti * ntj:
+        ai, aj = all_tiles(nti, ntj)
+        if np.array_equal(ti, ai) and np.array_equal(tj, aj):
+            return ("all", nti, ntj)
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tiles(mode, device):
+    """Device copies of a standard tile list, made once per shape, so a
+    launch does not copy its list from pageable host memory every time."""
+    ti, tj = upper_triangle_tiles(*mode[1:]) if mode[0] == "upper" \
+        else all_tiles(*mode[1:])
+    return torch.tensor(ti, device=device), torch.tensor(tj, device=device)
 
 
 def mirror_upper_tiles(s: torch.Tensor, tile: int) -> torch.Tensor:
@@ -176,9 +213,14 @@ def cooccurrence_tiles(
     if len(ti) == 0 or wl_t.shape[1] == 0:
         return out
     dev = bits_i_t.device
-    ti_d = torch.from_numpy(ti).to(dev)
-    tj_d = torch.from_numpy(tj).to(dev)
     nb, n8_i, block = bits_i_t.shape
+    mode = _tile_mode(bits_j_t is bits_i_t, ti, tj, 8 * n8_i // tile,
+                      8 * bits_j_t.shape[1] // tile)
+    if mode is None:
+        ti_d = torch.tensor(ti, device=dev)
+        tj_d = torch.tensor(tj, device=dev)
+    else:
+        ti_d, tj_d = _device_tiles(mode, dev)
     with torch.cuda.device(dev):
         rc = lib.ks_gram_int8_tiles(
             bits_i_t.data_ptr(), bits_j_t.data_ptr(), wl_t.data_ptr(),
@@ -189,6 +231,7 @@ def cooccurrence_tiles(
     if rc != 0:
         raise RuntimeError(f"gram_int8 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_MODE["list" if mode is None else mode[0]] += 1
     return out
 
 

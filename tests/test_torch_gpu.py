@@ -8,15 +8,20 @@ machine without jax (``tests/conftest.py`` imports jax, hence
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 The plain version is held against kspider_tpu's Pallas kernels on the CPU
-in tests/test_torch_cuda_pairwise.py.  Tolerance: exact int32 equality.
+in tests/test_torch_cuda_pairwise.py, and the panel-streamed engine and the
+torch device pack against kspider_tpu's in tests/test_torch_tiled_pairwise.py
+and tests/test_torch_device_pack.py.  Here the same code runs on the card
+and must equal its CPU run.  Tolerance: exact equality.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from kspider_tpu_torch.ops import bitmask as tbm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as tpw
+from kspider_tpu_torch.ops import tiled_pairwise as ttp
 
 BLOCK = 128
 
@@ -99,3 +104,61 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=128,
                               out=out.to(torch.int64))
+
+
+class _Index:
+    def __init__(self, offsets, members, weights, n, counts):
+        self.color_offsets = offsets
+        self.color_members = members
+        self.color_counts = weights
+        self.num_groups = n
+        self.group_kmer_count = counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_pack", ["force", "off"])
+def test_tiled_stream_on_card_equals_cpu(cuda_device, tmp_path, device_pack):
+    rng = np.random.default_rng(13)
+    n = 700
+    o, m, w = random_csr(rng, 3000, n, 12, 40000)
+    index = _Index(o, m, w, n, rng.integers(1, 100000, size=n))
+    before = dict(cp.LAUNCHES_BY_MODE)
+    stats = {}
+    rows = ttp.stream_pairwise_tsv(
+        index, str(tmp_path / "card"), device=cuda_device, panel=256,
+        block=BLOCK, device_pack=device_pack, stats=stats)
+    ttp.stream_pairwise_tsv(index, str(tmp_path / "cpu"), device="cpu",
+                            panel=256, block=BLOCK, device_pack=device_pack)
+    assert rows > 0
+    with open(str(tmp_path / "card") + "_kSpider_pairwise.tsv", "rb") as a, \
+            open(str(tmp_path / "cpu") + "_kSpider_pairwise.tsv", "rb") as b:
+        assert a.read() == b.read()
+    assert cp.LAUNCHES_BY_MODE["upper"] > before["upper"]
+    assert cp.LAUNCHES_BY_MODE["all"] > before["all"]
+    assert stats["cache_misses"] > 0  # the 2 GB cache is on for a card
+
+
+@pytest.mark.gpu
+def test_device_pack_on_card_equals_host(cuda_device):
+    rng = np.random.default_rng(17)
+    n_colors, panel_pad, block = 500, 768, 128
+    o, m, _ = random_csr(rng, n_colors, 700, 60, 10)
+    n_blocks = -(-n_colors // block)
+    host = tbm.pack_bitmask_blocks(
+        np.concatenate([o, np.full(n_blocks * block - n_colors, o[-1])]),
+        m, panel_pad, block).transpose(0, 2, 1)
+    keys = (np.repeat(np.arange(n_colors), np.diff(o)) * panel_pad + m)
+    count = len(keys)
+    padded = np.concatenate([
+        keys, n_blocks * block * panel_pad + np.arange(300)]).astype(np.int32)
+    geometry = (n_blocks, block, panel_pad)
+    got = [tbm.scatter_pack_device(padded, *geometry, device=cuda_device)]
+    first, d8, exc = tbm.delta_encode_keys_u8(padded, count)
+    got.append(tbm.scatter_pack_device_delta8(first, d8, exc, count, *geometry,
+                                              device=cuda_device))
+    enc = tbm.delta_encode_keys(padded, count)
+    if enc is not None:
+        got.append(tbm.scatter_pack_device_delta(enc[0], enc[1], count,
+                                                 *geometry, device=cuda_device))
+    for g in got:
+        assert g.is_cuda and np.array_equal(g.cpu().numpy(), host)

@@ -29,6 +29,17 @@ shared = pairwise.run_pairwise(prefix, device="cpu", echo_timers=False)
 assert shared.shape == (6, 6) and shared[0, 2] > 0
 with open(cluster.cluster_index(prefix, 0.3, device="cpu")) as f:
     assert f.read() == "s0,s2,s4\ns1,s3,s5\n"
+with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
+    dense_tsv = f.read()
+# the panel-streamed engine: 3 panels of 2 samples, diagonal and
+# off-diagonal pairs, device-packed sides
+assert pairwise.run_pairwise(prefix, device="cpu", engine="tiled", panel=2,
+                             device_pack="force", echo_timers=False) is None
+with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
+    assert f.read() == dense_tsv
+with open(cluster.cluster_from_index(index, prefix, 0.3, device="cpu",
+                                     panel=2)) as f:
+    assert f.read() == "s0,s2,s4\ns1,s3,s5\n"
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")

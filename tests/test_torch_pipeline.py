@@ -1,9 +1,10 @@
 """kspider_tpu_torch's CLI pipeline vs kspider_tpu on the sig fixture.
 
 The port's ``index``, ``pairwise`` and ``cluster -c 0.55`` run through its
-click group on the CPU; kspider_tpu's ``run_pairwise`` and ``cluster_index``
-run on a second copy of the same artifacts.  ``_kSpider_seqToKmersNo.tsv``,
-``_kSpider_pairwise.tsv`` and the clusters TSV must be byte-identical.
+click group on the CPU; kspider_tpu's ``run_pairwise``, ``cluster_index``
+and ``cluster_from_index`` run on copies of the same artifacts.
+``_kSpider_seqToKmersNo.tsv``, ``_kSpider_pairwise.tsv`` and the clusters
+TSV must be byte-identical, on the dense and on the panel-streamed engine.
 """
 
 import filecmp
@@ -48,13 +49,17 @@ def jax_run(sig_collection, tmp_path_factory):
     return port_prefix, jax_prefix
 
 
+def copy_index(src_prefix, dst_prefix):
+    for suffix in ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
+                   "_color_count.bin", ".namesMap", ".extra"):
+        shutil.copy(src_prefix + suffix, dst_prefix + suffix)
+
+
 @pytest.mark.parametrize("engine_flags", [["--device", "cpu"], ["--cpu"]])
 def test_cli_outputs_byte_identical(jax_run, engine_flags, tmp_path):
     port_prefix, jax_prefix = jax_run
     prefix = str(tmp_path / "sigs")
-    for suffix in ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
-                   "_color_count.bin", ".namesMap", ".extra"):
-        shutil.copy(port_prefix + suffix, prefix + suffix)
+    copy_index(port_prefix, prefix)
     result = invoke("pairwise", "-i", prefix, *engine_flags)
     assert result.exit_code == 0, result.output
     result = invoke("cluster", "-i", prefix, "-c", str(CUTOFF), *engine_flags)
@@ -74,12 +79,80 @@ def test_cuda_without_card_exits_nonzero(jax_run):
         assert "torch.cuda.is_available() is False" in result.output
 
 
+@pytest.fixture(scope="module")
+def jax_tiled_run(jax_run, tmp_path_factory):
+    """kspider_tpu's panel-streamed pairwise (8-sample panels, so the 25
+    groups make 4 panels and 10 pairs) and ``cluster_from_index``."""
+    from kspider_tpu.io import artifacts
+
+    port_prefix, _ = jax_run
+    prefix = str(tmp_path_factory.mktemp("torch_pipeline_tiled") / "sigs")
+    copy_index(port_prefix, prefix)
+    jpairwise.run_pairwise(prefix, use_tpu=False, engine="tiled", panel=8,
+                           echo_timers=False)
+    jcluster.cluster_from_index(artifacts.load_index_artifacts(prefix), prefix,
+                                CUTOFF, use_tpu=False, panel=8)
+    return prefix
+
+
+@pytest.mark.parametrize("args,outputs", [
+    (["pairwise", "--engine", "tiled", "--panel", "8", "--device", "cpu"],
+     OUTPUTS[:2]),
+    (["pairwise", "--engine", "tiled", "--panel", "8", "--device", "cpu",
+      "--device-pack", "force"], OUTPUTS[:2]),
+    (["pairwise", "--engine", "tiled", "--panel", "8", "--cpu",
+      "--device-pack", "off"], OUTPUTS[:2]),
+    (["cluster", "--from-index", "-c", str(CUTOFF), "--panel", "8",
+      "--device", "cpu"], OUTPUTS[2:]),
+    (["cluster", "--from-index", "-c", str(CUTOFF), "--panel", "8", "--cpu"],
+     OUTPUTS[2:]),
+])
+def test_tiled_cli_byte_identical(jax_run, jax_tiled_run, args, outputs,
+                                  tmp_path):
+    port_prefix, _ = jax_run
+    prefix = str(tmp_path / "sigs")
+    copy_index(port_prefix, prefix)
+    result = invoke(*args, "-i", prefix)
+    assert result.exit_code == 0, result.output
+    for suffix in outputs:
+        assert filecmp.cmp(prefix + suffix, jax_tiled_run + suffix,
+                           shallow=False), suffix
+
+
+@pytest.mark.parametrize("flags,tiled", [(["--cpu"], False),
+                                         (["--device", "cpu"], True)])
+def test_cpu_above_threshold_matches_jax(jax_run, monkeypatch, tmp_path,
+                                         flags, tiled):
+    """Above the tiled threshold ``--cpu`` runs the numpy dense engine, as
+    kspider_tpu does; a torch device takes the panel-streamed engine.  Both
+    write kspider_tpu's ``pairwise --cpu`` bytes."""
+    from kspider_tpu_torch.core import pairwise as tpairwise
+    from kspider_tpu_torch.ops import tiled_pairwise
+
+    monkeypatch.setattr(jpairwise, "AUTO_TILED_THRESHOLD", 10)
+    monkeypatch.setattr(tpairwise, "AUTO_TILED_THRESHOLD", 10)
+    streamed = []
+    stream = tiled_pairwise.stream_pairwise_tsv
+    monkeypatch.setattr(tiled_pairwise, "stream_pairwise_tsv",
+                        lambda *a, **k: streamed.append(1) or stream(*a, **k))
+    port_prefix, _ = jax_run
+    jax_prefix = str(tmp_path / "jax")
+    copy_index(port_prefix, jax_prefix)
+    assert jpairwise.run_pairwise(jax_prefix, use_tpu=False,
+                                  echo_timers=False) is not None
+    prefix = str(tmp_path / "port")
+    copy_index(port_prefix, prefix)
+    result = invoke("pairwise", "-i", prefix, *flags)
+    assert result.exit_code == 0, result.output
+    assert bool(streamed) == tiled
+    for suffix in OUTPUTS[:2]:
+        assert filecmp.cmp(prefix + suffix, jax_prefix + suffix,
+                           shallow=False), suffix
+
+
 @pytest.mark.parametrize("args", [
-    ["pairwise", "--engine", "tiled"],
     ["pairwise", "--num-processes", "2"],
     ["pairwise", "--coordinator", "localhost:1234"],
-    ["pairwise", "--device-pack", "force"],
-    ["cluster", "--from-index"],
 ])
 def test_unported_options_are_refused(jax_run, args):
     port_prefix, _ = jax_run
@@ -98,12 +171,19 @@ def test_device_build_is_refused(sig_collection, tmp_path):
 
 
 def test_dense_engine_refuses_tiled_sizes(tmp_path):
+    """N = 16,385 is past the dense engine: a torch device takes the
+    panel-streamed engine, which writes kspider_tpu's header-only TSV."""
     from kspider_tpu.core.index import build_index_from_hash_sets
     from kspider_tpu_torch.core import pairwise as tpairwise
 
     n = tpairwise.AUTO_TILED_THRESHOLD + 1
     index = build_index_from_hash_sets([f"s{i}" for i in range(n)], [None] * n)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        tpairwise.run_pairwise(str(tmp_path / "big"), index, device="cpu",
-                               echo_timers=False)
-    assert not os.path.exists(str(tmp_path / "big_kSpider_pairwise.tsv"))
+    assert tpairwise.run_pairwise(str(tmp_path / "port"), index, device="cpu",
+                                  echo_timers=False) is None
+    assert jpairwise.run_pairwise(str(tmp_path / "jax"), index,
+                                  echo_timers=False) is None
+    for suffix in OUTPUTS[:2]:
+        assert filecmp.cmp(str(tmp_path / "port") + suffix,
+                           str(tmp_path / "jax") + suffix, shallow=False)
+    with open(str(tmp_path / "port") + OUTPUTS[1]) as f:
+        assert f.read().count("\n") == 1

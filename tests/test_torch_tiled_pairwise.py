@@ -1,0 +1,375 @@
+"""kspider_tpu_torch's panel-streamed engine vs kspider_tpu's.
+
+The same seeded CSRs go through the JAX package's tiled engine (Pallas in
+interpret mode, or its XLA engine, as its own tests run them on the CPU)
+and through the port on the CPU (the Gram kernel's plain torch version).
+Tolerance everywhere: exact.  The plan fields, the re-homed host packers,
+each chunk's raw int32 limb accumulators, the yielded
+``(pi, pj, gi, gj, shared)`` sequence, the streamed TSV bytes and the
+clusters of ``cluster_from_index`` must all be equal.
+"""
+
+import filecmp
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from kspider_tpu.core import cluster as jcluster
+from kspider_tpu.ops import pairwise as jpw
+from kspider_tpu.ops import pallas_pairwise as jpp
+from kspider_tpu.ops import tiled_pairwise as jtp
+from kspider_tpu_torch.core import cluster as tcluster
+from kspider_tpu_torch.core import pairwise as tpairwise
+from kspider_tpu_torch.ops import cuda_pairwise as cp
+from kspider_tpu_torch.ops import pairwise as tpw
+from kspider_tpu_torch.ops import tiled_pairwise as ttp
+from tests.test_pairwise_ops import random_csr
+from tests.test_tiled_pairwise import _FakeIndex, _global_color_csr
+
+BLOCK = 128
+TILE = 128
+PLAN_FIELDS = ("n", "panel", "n_panels", "mem_s", "seg_start", "seg_count",
+               "seg_color", "w_limbs", "pair_keys", "pair_off", "ent_sega",
+               "ent_segb", "max_weight_sum", "src_shape")
+
+
+def csr(seed, n_colors=500, n=700, max_degree=12, max_weight=40000):
+    return random_csr(np.random.default_rng(seed), n_colors, n,
+                      max_degree=max_degree, max_weight=max_weight)
+
+
+def both_plans(o, m, w, n, panel):
+    return (jtp.build_panel_plan(o, m, w, n, panel),
+            ttp.build_panel_plan(o, m, w, n, panel))
+
+
+def assert_same_stream(jax_iter, port_iter):
+    want, got = list(jax_iter), list(port_iter)
+    assert [(g[0], g[1]) for g in got] == [(x[0], x[1]) for x in want]
+    for x, g in zip(want, got):
+        for a, b in zip(x[2:], g[2:]):
+            assert b.dtype == np.int64
+            assert np.array_equal(np.asarray(a), b)
+    return got
+
+
+# ---- plan and host packing ------------------------------------------------
+
+
+def _unsorted(o, m, w):
+    m = m.copy()
+    for c in range(len(o) - 1):
+        m[o[c]:o[c + 1]] = m[o[c]:o[c + 1]][::-1]
+    return o, m, w
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "singletons", "no_samples"])
+@pytest.mark.parametrize("panel", [128, 300])
+def test_build_panel_plan_matches_jax(case, panel):
+    n = 700
+    if case == "singletons":
+        o, m, w = np.arange(6, dtype=np.int64), np.arange(5), np.ones(5, np.int64)
+    elif case == "no_samples":
+        o, m, w, n = np.zeros(1, np.int64), np.zeros(0, np.int32), \
+            np.zeros(0, np.int64), 0
+    else:
+        o, m, w = csr(panel)
+        if case == "unsorted":
+            o, m, w = _unsorted(o, m, w)
+    want, got = both_plans(o, m, w, n, panel)
+    for field in PLAN_FIELDS:
+        a, b = getattr(want, field), getattr(got, field)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), field
+        else:
+            assert a == b, field
+
+
+@pytest.mark.parametrize("native_mode", ["auto", "off"])
+def test_host_side_packers_match_jax(monkeypatch, native_mode):
+    monkeypatch.setenv("KSPIDER_NATIVE", native_mode)
+    o, m, w = csr(5)
+    jplan, tplan = both_plans(o, m, w, 700, 300)
+    panel_pad = 384
+    for p in range(len(tplan.pair_keys)):
+        pk = int(tplan.pair_keys[p])
+        pi = pk // tplan.n_panels
+        segs = tplan.ent_sega[tplan.pair_off[p]:tplan.pair_off[p + 1]]
+        nb = -(-len(segs) // BLOCK)
+        for a, b in zip(jtp._gather_side(jplan, segs), ttp._gather_side(tplan, segs)):
+            assert np.array_equal(a, b)
+        want = jtp._pack_panel_side(jplan, pi, segs, nb, BLOCK, panel_pad, True)
+        got = ttp._pack_panel_side(tplan, pi, segs, nb, BLOCK, panel_pad)
+        assert got.dtype == np.uint8 and np.array_equal(got, want)
+        colors = tplan.seg_color[segs]
+        assert np.array_equal(
+            ttp._pad_limbs(tplan.w_limbs[colors], nb, BLOCK),
+            jtp._pad_limbs(jplan.w_limbs[colors], nb, BLOCK, True))
+        assert np.array_equal(
+            ttp._postings_keys(tplan, pi, segs, panel_pad, nb, BLOCK),
+            jtp._postings_keys(jplan, pi, segs, panel_pad, nb, BLOCK))
+
+
+def test_postings_keys_guards():
+    fields = dict(
+        n=8, panel=8, n_panels=1, mem_s=np.arange(4, dtype=np.int32),
+        seg_start=np.array([0], np.int64), seg_count=np.array([4], np.int64),
+        seg_color=np.array([0], np.int64), w_limbs=np.ones((1, 1), np.int8),
+        pair_keys=np.array([0], np.int64), pair_off=np.array([0, 1], np.int64),
+        ent_sega=np.array([0], np.int64), ent_segb=np.array([0], np.int64),
+        max_weight_sum=4,
+    )
+    plan = ttp.PanelPlan(**fields)
+    # bit-position space too large for int32 -> host pack
+    assert ttp._postings_keys(plan, 0, np.array([0]), panel_pad=2**20,
+                              n_blocks=2**10, block=2**10) is None
+    # a duplicate (color, member) posting breaks strict increase -> host pack
+    dup = ttp.PanelPlan(**dict(fields, mem_s=np.array([0, 1, 1, 2], np.int32)))
+    assert ttp._postings_keys(dup, 0, np.array([0]), 128, 1, 128) is None
+    jdup = jtp.PanelPlan(**dict(fields, mem_s=np.array([0, 1, 1, 2], np.int32)))
+    assert jtp._postings_keys(jdup, 0, np.array([0]), 128, 1, 128) is None
+    keys = ttp._postings_keys(plan, 0, np.array([0]), 128, 1, 128)
+    assert np.array_equal(keys[:4], np.arange(4)) and (keys[4:] >= 128).all()
+
+
+# ---- per-chunk limb accumulators vs the Pallas kernels --------------------
+
+
+def test_chunk_accumulators_match_pallas_tri_and_rect():
+    o, m, w = csr(9)
+    jplan, tplan = both_plans(o, m, w, 700, 256)
+    panel_pad, n_limbs = 256, tplan.n_limbs
+    assert n_limbs == 3
+    keys = tplan.pair_keys.tolist()
+    diag = keys.index(1 * tplan.n_panels + 1)
+    off = keys.index(0 * tplan.n_panels + 2)
+    for p, is_diag in ((diag, True), (off, False)):
+        pk = keys[p]
+        pi, pj = pk // tplan.n_panels, pk % tplan.n_panels
+        e0, e1 = tplan.pair_off[p], tplan.pair_off[p + 1]
+        sa, sb = tplan.ent_sega[e0:e1], tplan.ent_segb[e0:e1]
+        nb = -(-len(sa) // BLOCK)
+        bits_a = ttp._pack_panel_side(tplan, pi, sa, nb, BLOCK, panel_pad)
+        bits_b = ttp._pack_panel_side(tplan, pj, sb, nb, BLOCK, panel_pad)
+        wl = ttp._pad_limbs(tplan.w_limbs[tplan.seg_color[sa]], nb, BLOCK)
+        ta = torch.from_numpy(bits_a)
+        tb = ta if is_diag else torch.from_numpy(bits_b)
+        got = ttp._chunk_acc(ta, tb, torch.from_numpy(wl), is_diag,
+                             panel_pad).numpy()
+        if is_diag:
+            ti, tj = cp.upper_triangle_tiles(panel_pad // TILE)
+            want = np.asarray(jpp.cooccurrence_pallas_tri(
+                bits_a, wl, ti, tj, BLOCK, panel_pad, n_limbs, tile=TILE,
+                interpret=True))
+            for i, j in zip(ti, tj):
+                blk = np.s_[:, i * TILE:(i + 1) * TILE, j * TILE:(j + 1) * TILE]
+                assert np.array_equal(got[blk], want[blk])
+        else:
+            want = np.asarray(jpp.cooccurrence_pallas_rect(
+                bits_a, bits_b, wl, BLOCK, panel_pad, panel_pad, n_limbs,
+                tile=TILE, interpret=True))
+            assert np.array_equal(got, want)
+        assert got.any()
+
+
+# ---- yielded streams --------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine,panel,min_shared", [
+    ("pallas", 256, 1),
+    ("xla", 128, 1),
+    ("xla", 300, 60000),
+])
+def test_iter_panel_pairs_matches_jax(engine, panel, min_shared):
+    o, m, w = csr(panel)
+    jplan, tplan = both_plans(o, m, w, 700, panel)
+    got = assert_same_stream(
+        jtp.iter_panel_pairs(jplan, engine=engine, block=BLOCK, tile=TILE,
+                             min_shared=min_shared,
+                             interpret=True if engine == "pallas" else None),
+        ttp.iter_panel_pairs(tplan, device="cpu", block=BLOCK,
+                             min_shared=min_shared),
+    )
+    assert any(g[0] == g[1] for g in got) and any(g[0] != g[1] for g in got)
+    assert all((g[4] >= max(1, min_shared)).all() for g in got)
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_iter_panel_pairs_big_weights_match_jax(engine):
+    o, m, w = csr(17, n_colors=60, max_weight=50)
+    w = w * (1 << 27)
+    jplan, tplan = both_plans(o, m, w, 700, 256)
+    assert tplan.max_weight_sum >= 2**31
+    got = assert_same_stream(
+        jtp.iter_panel_pairs(jplan, engine=engine, block=BLOCK, tile=TILE,
+                             interpret=True if engine == "pallas" else None),
+        ttp.iter_panel_pairs(tplan, device="cpu", block=BLOCK),
+    )
+    assert max(int(g[4].max()) for g in got) >= 2**31
+
+
+def test_iter_panel_pairs_big_weights_multichunk_match_jax(monkeypatch):
+    """Pairs spanning several super-block chunks: JAX accumulates them in a
+    host int64 tile, the port adds each chunk's limbs into its int64 device
+    tile."""
+    monkeypatch.setattr(jpw, "_MAX_COLORS_PER_CALL", 256)
+    monkeypatch.setattr(tpw, "_MAX_COLORS_PER_CALL", 256)
+    o, m, w = random_csr(np.random.default_rng(23), 600, 100, max_degree=6,
+                         max_weight=30)
+    w = w * (1 << 23)
+    jplan, tplan = both_plans(o, m, w, 100, 256)
+    assert tplan.max_weight_sum >= 2**31 and len(tplan.ent_sega) > 256
+    assert_same_stream(
+        jtp.iter_panel_pairs(jplan, engine="xla", block=BLOCK, tile=TILE),
+        ttp.iter_panel_pairs(tplan, device="cpu", block=BLOCK),
+    )
+
+
+def test_iter_panel_pairs_side_cache_evicts_and_hits():
+    n = 1300
+    o, m, w = _global_color_csr(np.random.default_rng(29), n, 256, 60)
+    jplan, tplan = both_plans(o, m, w, n, 256)
+    want = list(jtp.iter_panel_pairs(jplan, engine="xla", block=BLOCK,
+                                     tile=TILE))
+    runs = {}
+    for budget in (1 << 30, 20_000):
+        stats = {}
+        assert_same_stream(
+            iter(want),
+            ttp.iter_panel_pairs(tplan, device="cpu", block=BLOCK,
+                                 cache_bytes=budget, stats=stats),
+        )
+        assert stats["cache_hits"] > 0 and stats["cache_bytes"] <= budget
+        runs[budget] = stats
+    # the small budget evicted entries the big one kept
+    assert runs[20_000]["cache_misses"] > runs[1 << 30]["cache_misses"]
+
+
+# ---- streamed TSV --------------------------------------------------------------
+
+
+def _tsv(prefix):
+    with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
+        return f.read()
+
+
+def test_stream_tsv_matches_jax_and_dense(tmp_path):
+    rng = np.random.default_rng(31)
+    n = 700
+    o, m, w = random_csr(rng, 900, n, max_degree=12, max_weight=30000)
+    idx = _FakeIndex(o, m, w, n, rng.integers(1, 100000, size=n))
+    jax_prefix = str(tmp_path / "jax")
+    n_jax = jtp.stream_pairwise_tsv(idx, jax_prefix, panel=256, engine="xla",
+                                    block=BLOCK)
+    port_prefix = str(tmp_path / "port")
+    stats = {}
+    n_port = ttp.stream_pairwise_tsv(idx, port_prefix, device="cpu", panel=256,
+                                     block=BLOCK, stats=stats)
+    dense_prefix = str(tmp_path / "dense")
+    tpairwise.write_pairwise_tsv(
+        dense_prefix, idx, tpw.shared_kmer_matrix(o, m, w, n, device="cpu",
+                                                  block=BLOCK))
+    assert n_port == n_jax > 0
+    assert _tsv(port_prefix) == _tsv(jax_prefix) == _tsv(dense_prefix)
+    assert stats["t_tsv"] >= 0
+    assert stats["bits_sides"] + stats["keys_sides"] > 0
+
+
+def test_stream_tsv_empty_is_header_only(tmp_path):
+    o, m = np.arange(6, dtype=np.int64), np.arange(5, dtype=np.int64)
+    idx = _FakeIndex(o, m, np.ones(5, np.int64), 5, np.ones(5, np.int64))
+    jtp.stream_pairwise_tsv(idx, str(tmp_path / "jax"), panel=256, engine="xla")
+    assert ttp.stream_pairwise_tsv(idx, str(tmp_path / "port"), device="cpu",
+                                   panel=256) == 0
+    assert _tsv(str(tmp_path / "port")) == _tsv(str(tmp_path / "jax"))
+    assert _tsv(str(tmp_path / "port")).count(b"\n") == 1
+
+
+def _family_index(seed, n_families=12, per_family=8):
+    """Seeded families: members share most of a family core, plus a few
+    hashes shared across families."""
+    from kspider_tpu.core.index import build_index_from_hash_sets
+
+    rng = np.random.default_rng(seed)
+    pool = np.unique(rng.integers(1, 2**62, size=60000, dtype=np.uint64))
+    rng.shuffle(pool)
+    cross = pool[:300]
+    names, arrays = [], []
+    for f in range(n_families):
+        core = pool[300 + 3000 * f: 300 + 3000 * f + 2000]
+        for i in range(per_family):
+            own = pool[300 + 3000 * f + 2000 + 100 * i:][:100]
+            names.append(f"f{f:02d}_s{i}")
+            arrays.append(np.unique(np.concatenate([
+                core[rng.random(len(core)) < rng.uniform(0.5, 0.95)], own,
+                cross[rng.random(len(cross)) < 0.05]])))
+    return build_index_from_hash_sets(names, arrays, ksize=21,
+                                      params="kSize:21")
+
+
+def test_stream_tsv_plan_reuse_and_mismatch(tmp_path):
+    index = _family_index(37)
+    plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
+                                index.color_counts, index.num_groups, 32)
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    ttp.stream_pairwise_tsv(index, a, device="cpu", panel=32, block=BLOCK)
+    ttp.stream_pairwise_tsv(index, b, device="cpu", panel=32, block=BLOCK,
+                            plan=plan)
+    assert _tsv(a) == _tsv(b)
+    with pytest.raises(ValueError, match="panel=32"):
+        ttp.stream_pairwise_tsv(index, b, device="cpu", panel=64, plan=plan)
+    for other in (_family_index(41, n_families=11), _family_index(43)):
+        other_plan = ttp.build_panel_plan(
+            other.color_offsets, other.color_members, other.color_counts,
+            other.num_groups, 32)
+        with pytest.raises(ValueError, match="different index"):
+            ttp.stream_pairwise_tsv(index, b, device="cpu", panel=32,
+                                    plan=other_plan)
+
+
+# ---- cluster --from-index ----------------------------------------------------
+
+
+def _cluster_both(index, prefix_dir, cutoff, dist_type, panel, device):
+    os.makedirs(prefix_dir, exist_ok=True)
+    jax_out = jcluster.cluster_from_index(
+        index, os.path.join(prefix_dir, "jax"), cutoff, dist_type=dist_type,
+        use_tpu=device is not None, panel=panel)
+    port_out = tcluster.cluster_from_index(
+        index, os.path.join(prefix_dir, "port"), cutoff, dist_type=dist_type,
+        device=device, panel=panel)
+    assert filecmp.cmp(jax_out, port_out, shallow=False)
+    with open(port_out) as f:
+        return [line.strip().split(",") for line in f]
+
+
+@pytest.mark.parametrize("dist_type,device", [("max_cont", "cpu"),
+                                              ("min_cont", None)])
+def test_cluster_from_index_matches_jax_on_families(tmp_path, dist_type, device):
+    index = _family_index(47)
+    clusters = _cluster_both(index, str(tmp_path), 0.3, dist_type, 32, device)
+    assert len(clusters) == 12
+    assert all(len({s.split("_")[0] for s in c}) == 1 for c in clusters)
+
+
+def test_cluster_from_index_matches_jax_on_sigs(sig_collection, tmp_path):
+    from kspider_tpu.core import dataset
+
+    sigs_dir, _, ksize = sig_collection
+    index = dataset.index_sigs_dir(sigs_dir, ksize,
+                                   output_prefix=str(tmp_path / "sigs"))
+    clusters = _cluster_both(index, str(tmp_path), 0.55, "avg_cont", 8, "cpu")
+    assert len(clusters) >= 4
+
+
+def test_cluster_from_index_refuses_ani(tmp_path, capsys):
+    index = _FakeIndex(*csr(1), 700, None)
+    # Logger.ERROR exits 1, as in kspider_tpu
+    with pytest.raises(SystemExit):
+        jcluster.cluster_from_index(index, str(tmp_path / "j"), 0.5, "ani")
+    with pytest.raises(SystemExit):
+        tcluster.cluster_from_index(index, str(tmp_path / "t"), 0.5, "ani",
+                                    device="cpu")
+    assert capsys.readouterr().err.count("does not support the ani") == 2
