@@ -9,8 +9,9 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. build: compiles the Gram kernel from ``kspider_tpu_torch/csrc`` with nvcc;
 3. kernel vs plain: every launch mode of the kernel (all tiles of a
    square, all tiles of a rectangle with distinct sides, upper tiles) at
-   the dense path's shapes and at small ragged ones, bit-exact int32
-   against the plain float64 torch version, each timed with CUDA events;
+   the dense path's shapes and at small ragged ones, in both forms (int8,
+   bf16), bit-exact int32 against the plain torch version of each form,
+   each timed with CUDA events;
 4. dense path: a synthetic genus-scale index (F families of 8 samples,
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
    and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
@@ -20,18 +21,33 @@ Phases, each printed on its own line; any failure exits non-zero:
    --device-pack force`` (4 panels, 10 pairs); its TSV must equal the dense
    one and the kernel must have run in both modes (upper tiles for
    diagonal panel pairs, all tiles for off-diagonal ones);
+4c. the bf16 form on the same index: ``shared_kmer_matrix_cuda(
+   compute_dtype=torch.bfloat16)`` must launch the bf16 kernel and equal
+   the int8 matrix;
+4d. the fused single-device step over all non-singleton colors of the
+   same index (blocks of 1,024 in kspider_tpu's layout): ``shared`` must
+   equal the dense engine's matrix, ``labels`` scipy's CC of the same
+   thresholded adjacency;
+4e. ``pairwise --engine scatter`` (postings scatter + ``torch._int_mm``),
+   ``--engine pallas`` and ``--engine bitmask``: each TSV must equal the
+   dense one, and pallas and bitmask must launch the kernel;
+4f. the same collection written as .bin files and indexed by the CLI with
+   and without ``--device-build --device cuda``: all five artifacts must
+   be byte-equal;
 5. tiled path at full width: a second index of T families (N = 8 T, above
-   the dense engine's 16,384) through ``pairwise`` with no engine flag (the
+   the dense engine's 16,384).  First the device index build of the same
+   hash sets (``build_index_device``), whose every ColorIndex field must
+   equal the host build's.  Then ``pairwise`` with no engine flag (the
    automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
    ``cluster --from-index -c 0.2``.  The kernel is first held against its
-   plain version on the path's own first diagonal and off-diagonal chunks.
-   The TSV must equal the OpenMP host engine's, both cluster outputs must
-   equal scipy's and recover the families, and the kernel must have run
-   in both modes.
+   plain version, in both forms, on the path's own first diagonal and
+   off-diagonal chunks.  The TSV must equal the OpenMP host engine's, both
+   cluster outputs must equal scipy's and recover the families, and the
+   kernel must have run in both modes.
 
 jax must never have been imported.  Launch counts are reset to 0 right
 before each path and read right after it.  The line before the last is a
-JSON object describing the kernel; the last line is
+JSON object describing the kernel's two forms; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
 and prints no result.
 """
@@ -57,6 +73,11 @@ ALSO_REPLACES = [
 MEMBERS_PER_FAMILY = 8
 CUTOFF = 0.2
 CLUSTERS_SUFFIX = f"_kSpider_clusters_{CUTOFF * 100.0}%.tsv"
+ARTIFACTS = ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
+             "_color_count.bin", ".namesMap", ".extra")
+#: the kernel's name in torch.profiler and the template argument of each form
+KERNEL = "gram_tiles_kernel"
+FORMS = {torch.int8: "Int8Form", torch.bfloat16: "Bf16Form"}
 
 
 def phase(name, ok, detail=""):
@@ -109,22 +130,26 @@ def make_hash_sets(rng, n_families):
 
 
 def make_index(rng, n_families, prefix):
-    """Generate, index and write the artifacts of one synthetic collection."""
+    """Generate, index (host build) and write the artifacts of one synthetic
+    collection; returns the index, the names, the hash sets and the host
+    build's wall."""
     from kspider_tpu.core.index import build_index_from_hash_sets
     from kspider_tpu.io import artifacts
 
     t0 = time.perf_counter()
     names, arrays = make_hash_sets(rng, n_families)
+    t1 = time.perf_counter()
     index = build_index_from_hash_sets(names, arrays, ksize=21,
                                        params="kSize:21")
-    del arrays
+    host_build_s = time.perf_counter() - t1
     artifacts.write_index_artifacts(prefix, index)
     deg = index.color_degrees()
     print(f"[setup] N={index.num_groups} colors={index.num_colors} "
           f"non-singleton={int((deg >= 2).sum())} "
           f"postings={len(index.color_members)} "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    return index
+          f"{time.perf_counter() - t0:.3f} s (host index build "
+          f"{host_build_s:.3f} s)", flush=True)
+    return index, names, arrays, host_build_s
 
 
 def cuda_ms(fn, reps):
@@ -140,14 +165,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps):
-    """Kernel vs plain on one launch mode; returns (max_abs_err, ms, plain_ms)."""
+def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps,
+                 compute_dtype=torch.int8):
+    """Kernel vs plain on one launch mode of one form; returns
+    (max_abs_err, ms, plain_ms)."""
     n_limbs = wl.shape[1]
     dev = bits_i.device
 
     def run(fn):
         out = torch.zeros((n_limbs, npad_i, npad_j), dtype=torch.int32, device=dev)
-        fn(bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out)
+        fn(bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out,
+           compute_dtype=compute_dtype)
         return out
 
     out_k = run(cp.cooccurrence_tiles)
@@ -157,7 +185,8 @@ def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps):
     del out_k, out_p
     ms = cuda_ms(lambda: run(cp.cooccurrence_tiles), reps)
     plain_ms = cuda_ms(lambda: run(cp.cooccurrence_tiles_plain), max(1, reps // 5))
-    print(f"  {label}: NB={bits_i.shape[0]} npad={npad_i}x{npad_j} "
+    print(f"  {label} [{str(compute_dtype)[6:]}]: NB={bits_i.shape[0]} "
+          f"npad={npad_i}x{npad_j} "
           f"block={bits_i.shape[2]} L={n_limbs} pairs={len(ti)} "
           f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
           flush=True)
@@ -166,12 +195,27 @@ def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps):
 
 def reset_counts(cp):
     cp.LAUNCHES = 0
-    for mode in cp.LAUNCHES_BY_MODE:
-        cp.LAUNCHES_BY_MODE[mode] = 0
+    for counts in (cp.LAUNCHES_BY_MODE, cp.LAUNCHES_BY_DTYPE):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts(cp):
+    """Launches by mode and in total, of the int8 form; the bf16 form's
+    launches are read from ``LAUNCHES_BY_DTYPE`` on its own path."""
+    if cp.LAUNCHES_BY_DTYPE["bfloat16"]:
+        phase("int8 counts read on an int8 path", False, f"{cp.LAUNCHES_BY_DTYPE}")
     return dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)
+
+
+def kernel_ms(averages, compute_dtype):
+    """Device ms of one form of the Gram kernel in torch.profiler averages."""
+    return sum(getattr(e, "device_time_total", 0) for e in averages
+               if KERNEL in e.key and FORMS[compute_dtype] in e.key) / 1000.0
+
+
+def fmt_ms(ms):
+    return f"{ms:.3f} ms" if ms > 0 else "not measured"
 
 
 def run_cli(cli, *args):
@@ -273,10 +317,112 @@ def gram_time_by_mode(cp, ttp, plan, dev):
     by_mode = {mode: (len(ev), sum(s.elapsed_time(e) for s, e in ev))
                for mode, ev in events.items()}
     averages = prof.key_averages()
-    prof_ms = sum(getattr(e, "device_time_total", 0) for e in averages
-                  if "gram_int8" in e.key) / 1000.0
+    prof_ms = kernel_ms(averages, torch.int8)
     busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in averages) / 1000.0
     return by_mode, prof_ms, busy_ms, wall_ms
+
+
+def fused_step_phase(index, dense_shared, dev, cp, launches):
+    """Phase 4d: the fused step over every non-singleton color of ``index``
+    in kspider_tpu's layout; returns (wall s, CC rounds)."""
+    from kspider_tpu_torch.ops import bitmask as bm
+    from kspider_tpu_torch.ops import cc as cc_ops
+    from kspider_tpu_torch.ops import pairwise as pw
+    from kspider_tpu_torch.parallel import step
+
+    block = 1024
+    n = index.num_groups
+    offs, mem, w = pw._drop_singletons(index.color_offsets, index.color_members,
+                                       index.color_counts, True)
+    t0 = time.perf_counter()
+    bits = bm.pack_bitmask_blocks(offs, mem, n, block)
+    nb, n_pad = bits.shape[0], bits.shape[2] * 8
+    w_limbs = pw.weight_limbs(w)
+    n_limbs = w_limbs.shape[1]
+    wl = np.zeros((nb * block, n_limbs), dtype=np.int8)
+    wl[: len(w)] = w_limbs
+    wl = wl.reshape(nb, block, n_limbs)
+    counts = index.group_kmer_count.astype(np.int32)
+    print(f"[step N={n}] host pack of {len(w)} colors: {nb} blocks of {block}, "
+          f"{bits.nbytes} B of bits, {time.perf_counter() - t0:.3f} s", flush=True)
+    stats = {}
+    reset_counts(cp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shared, labels = step.single_device_step(
+        bits, wl, counts, CUTOFF, block, n_pad, n_limbs, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches["fused_step"] = read_counts(cp)
+    print(f"[step N={n}] single_device_step {step_s:.3f} s (H2D included), "
+          f"{stats['rounds']} CC rounds, accumulator "
+          f"{4 * n_limbs * n_pad * n_pad} B, kernel launches "
+          f"{launches['fused_step']}", flush=True)
+    phase("fused step launched the kernel", launches["fused_step"]["upper"] > 0)
+    shared = shared.cpu().numpy()
+    labels = labels.cpu().numpy()
+    phase("fused step shared == dense engine", np.array_equal(shared, dense_shared))
+    denom = np.minimum(counts[:, None], counts[None, :]).astype(np.float32)
+    cont = shared.astype(np.float32) / np.maximum(denom, np.float32(1.0))
+    adj = (cont >= np.float32(CUTOFF)) & (shared > 0)
+    del cont, denom
+    want = cc_ops.connected_components_scipy(*np.nonzero(adj), n)
+    phase("fused step labels == scipy", np.array_equal(labels, want),
+          f"{len(np.unique(labels))} components")
+    return step_s, stats["rounds"]
+
+
+def bins_cli_phase(cli, names, arrays, workdir):
+    """Phase 4f: ``index --bins`` with and without ``--device-build
+    --device cuda`` on the collection written as .bin files; returns the
+    two walls (host, device)."""
+    from kspider_tpu.io import phmap as phmap_io
+
+    bins = os.path.join(workdir, "bins")
+    os.makedirs(bins)
+    t0 = time.perf_counter()
+    for name, hashes in zip(names, arrays):
+        phmap_io.write_hash_set(os.path.join(bins, f"{name}.bin"), hashes)
+    print(f"[index CLI N={len(names)}] wrote {len(names)} .bin files, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    host, device = os.path.join(workdir, "bins_host"), os.path.join(workdir, "bins_dev")
+    host_s = run_cli(cli, "index", "--bins", "--dir", bins, "-k", "21", "-o", host)
+    device_s = run_cli(cli, "index", "--bins", "--dir", bins, "-k", "21", "-o",
+                       device, "--device-build", "--device", "cuda")
+    print(f"[index CLI N={len(names)}] index --bins {host_s:.3f} s, with "
+          f"--device-build --device cuda {device_s:.3f} s", flush=True)
+    same = all(filecmp.cmp(host + suffix, device + suffix, shallow=False)
+               for suffix in ARTIFACTS)
+    phase("index --device-build artifacts == host build", same,
+          f"{len(ARTIFACTS)} artifacts")
+    shutil.rmtree(bins, ignore_errors=True)
+    return host_s, device_s
+
+
+def device_build_phase(index, names, arrays, host_build_s, dev):
+    """Phase 5a: ``build_index_device`` on the card against the host build
+    of the same hash sets; returns the walls and the build's stats."""
+    from kspider_tpu_torch.core.index import build_index_device
+
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = build_index_device(names, arrays, ksize=21, params="kSize:21",
+                               device=dev, stats=stats)
+    device_s = time.perf_counter() - t0
+    print(f"[device build N={len(names)}] host build {host_build_s:.3f} s, "
+          f"device build {device_s:.3f} s; sort {stats['sort_ms']:.3f} ms "
+          f"(CUDA events), postings in {stats['postings_in']}, kept "
+          f"{stats['postings_kept']}, H2D {stats['h2d_bytes']} B", flush=True)
+    fields = ("names", "group_kmer_count", "color_ids", "color_offsets",
+              "color_members", "color_counts", "ksize", "hash_mode",
+              "slicing_mode", "params")
+    differ = [f for f in fields
+              if not np.array_equal(np.asarray(getattr(built, f)),
+                                    np.asarray(getattr(index, f)))]
+    phase("device index build == host build", not differ,
+          f"fields differing: {differ}" if differ else f"{len(fields)} fields")
+    return dict(stats, host_s=host_build_s, device_s=device_s)
 
 
 def main():
@@ -327,7 +473,7 @@ def main():
     os.makedirs(args.workdir)
     rng = np.random.default_rng(args.seed)
     prefix = os.path.join(args.workdir, "smoke")
-    index = make_index(rng, args.families, prefix)
+    index, names, arrays, _ = make_index(rng, args.families, prefix)
     n = index.num_groups
     deg = index.color_degrees()
     multi = deg >= 2
@@ -373,10 +519,16 @@ def main():
         results.append(compare_mode(cp, label, *rest))
     max_err = max(r[0] for r in results)
     main_ms, main_plain_ms = results[0][1], results[0][2]
-    del bits, wl, bits_a, bits_b
-    torch.cuda.empty_cache()
     phase("kernel vs plain", max_err == 0,
           f"{len(results)} cases, max_abs_err={max_err} (exact int32 required)")
+    results_bf16 = [compare_mode(cp, label, *rest, compute_dtype=torch.bfloat16)
+                    for label, *rest in modes]
+    max_err_bf16 = max(r[0] for r in results_bf16)
+    del bits, wl, bits_a, bits_b, modes
+    torch.cuda.empty_cache()
+    phase("bf16 kernel vs plain", max_err_bf16 == 0,
+          f"{len(results_bf16)} cases, max_abs_err={max_err_bf16} "
+          "(exact int32 required)")
 
     # ---- 4. dense path --------------------------------------------------
     launches = {}
@@ -394,15 +546,12 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pw.shared_kmer_matrix(index.color_offsets, index.color_members,
-                              index.color_counts, n, device=dev)
+        dense_shared = pw.shared_kmer_matrix(
+            index.color_offsets, index.color_members, index.color_counts, n,
+            device=dev)
         torch.cuda.synchronize()
-    kernel_ms = sum(
-        getattr(e, "device_time_total", 0) for e in prof.key_averages()
-        if "gram_int8" in e.key) / 1000.0
     print(f"[dense] Gram kernel time in one pairwise product: "
-          f"{f'{kernel_ms:.3f} ms' if kernel_ms > 0 else 'not measured'}",
-          flush=True)
+          f"{fmt_ms(kernel_ms(prof.key_averages(), torch.int8))}", flush=True)
 
     ref_prefix = os.path.join(args.workdir, "ref")
     ref_engine, ref_s = host_reference_tsv(index, ref_prefix, prefix, False)
@@ -428,14 +577,58 @@ def main():
           launches["tiled_dense_index"]["upper"] > 0
           and launches["tiled_dense_index"]["all"] > 0,
           f"{launches['tiled_dense_index']}")
-    del index
+
+    # ---- 4c. the bf16 form on the dense index ----------------------------
+    reset_counts(cp)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bf16_shared = cp.shared_kmer_matrix_cuda(
+            index.color_offsets, index.color_members, index.color_counts, n,
+            device=dev, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+    bf16_launches = cp.LAUNCHES_BY_DTYPE["bfloat16"]
+    print(f"[bf16 N={n}] shared_kmer_matrix_cuda {bf16_s:.3f} s, bf16 kernel "
+          f"launches {bf16_launches}, kernel time "
+          f"{fmt_ms(kernel_ms(prof.key_averages(), torch.bfloat16))}", flush=True)
+    phase("bf16 form launched on its path", bf16_launches > 0
+          and cp.LAUNCHES_BY_DTYPE["int8"] == 0, f"{cp.LAUNCHES_BY_DTYPE}")
+    phase("bf16 matrix == int8 matrix", np.array_equal(bf16_shared, dense_shared))
+    del bf16_shared
+
+    # ---- 4d. fused single-device step -----------------------------------
+    step_s, step_rounds = fused_step_phase(index, dense_shared, dev, cp, launches)
+    del dense_shared
+
+    # ---- 4e. the other engine names --------------------------------------
+    engine_s = {}
+    for engine in ("scatter", "pallas", "bitmask"):
+        reset_counts(cp)
+        engine_s[engine] = run_cli(cli, "pairwise", "-i", prefix, "--engine",
+                                   engine, "--device", "cuda")
+        counts = read_counts(cp)
+        if engine != "scatter":
+            launches[f"engine_{engine}"] = counts
+        print(f"[engine {engine} N={n}] pairwise stage {engine_s[engine]:.3f} s, "
+              f"kernel launches {counts}", flush=True)
+        phase(f"--engine {engine} TSV == dense TSV",
+              filecmp.cmp(tsv, dense_tsv, shallow=False))
+        phase(f"--engine {engine} launches",
+              counts["total"] == 0 if engine == "scatter" else counts["upper"] > 0,
+              f"{counts}")
+
+    # ---- 4f. index --device-build through the CLI on .bin files ----------
+    cli_build = bins_cli_phase(cli, names, arrays, args.workdir)
+    del index, names, arrays
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
 
     # ---- 5. tiled path at full width -------------------------------------
     big = os.path.join(args.workdir, "big")
-    index = make_index(rng, args.tiled_families, big)
+    index, names, arrays, host_build_s = make_index(rng, args.tiled_families, big)
     n_big = index.num_groups
+    build = device_build_phase(index, names, arrays, host_build_s, dev)
+    del names, arrays
     t0 = time.perf_counter()
     plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
                                 index.color_counts, n_big, 4096)
@@ -444,20 +637,28 @@ def main():
           f"L={plan.n_limbs}, {time.perf_counter() - t0:.3f} s", flush=True)
     # the kernel vs plain on the path's own first diagonal and off-diagonal chunks
     keys = plan.pair_keys.tolist()
-    tiled_modes = {}
+    tiled_modes, tiled_modes_bf16 = {}, {}
     for label, p in (("upper tiles (tiled diagonal pair (0,0))", keys.index(0)),
                      ("all tiles, rect (tiled pair (0,1))", keys.index(1))):
         bi, bj, wl_t, panel_pad = tiled_chunk_inputs(plan, p, dev)
         nt = panel_pad // cp.TILE
         tiles = cp.upper_triangle_tiles(nt) if bj is bi else cp.all_tiles(nt, nt)
-        tiled_modes["upper" if bj is bi else "all"] = compare_mode(
+        mode = "upper" if bj is bi else "all"
+        tiled_modes[mode] = compare_mode(
             cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5)
+        tiled_modes_bf16[mode] = compare_mode(
+            cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5,
+            compute_dtype=torch.bfloat16)
         del bi, bj, wl_t
     torch.cuda.empty_cache()
     tiled_err = max(r[0] for r in tiled_modes.values())
     max_err = max(max_err, tiled_err)
     phase("kernel vs plain at the tiled shapes", tiled_err == 0,
           f"max_abs_err={tiled_err} (exact int32 required)")
+    tiled_err_bf16 = max(r[0] for r in tiled_modes_bf16.values())
+    max_err_bf16 = max(max_err_bf16, tiled_err_bf16)
+    phase("bf16 kernel vs plain at the tiled shapes", tiled_err_bf16 == 0,
+          f"max_abs_err={tiled_err_bf16} (exact int32 required)")
 
     reset_counts(cp)
     pairwise_s = run_cli(cli, "pairwise", "-i", big, "--device", "cuda")
@@ -484,8 +685,7 @@ def main():
     by_mode, prof_ms, busy_ms, wall_ms = gram_time_by_mode(cp, ttp, plan, dev)
     print(f"[tiled N={n_big}] Gram kernel device time on the tiled pairs: "
           + ", ".join(f"{m} {c} launches {t:.3f} ms" for m, (c, t) in by_mode.items())
-          + f"; torch.profiler total "
-          f"{f'{prof_ms:.3f} ms' if prof_ms > 0 else 'not measured'}", flush=True)
+          + f"; torch.profiler total {fmt_ms(prof_ms)}", flush=True)
     if busy_ms > 0:
         print(f"[tiled N={n_big}] engine rerun without the TSV: device busy "
               f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
@@ -506,6 +706,11 @@ def main():
     shutil.rmtree(args.workdir, ignore_errors=True)
     print(f"[smoke] wall {time.perf_counter() - t_start:.3f} s", flush=True)
 
+    print(f"[smoke] summary: fused step {step_s:.3f} s ({step_rounds} CC "
+          f"rounds); engines {engine_s}; index CLI host/device "
+          f"{cli_build[0]:.3f}/{cli_build[1]:.3f} s; N={n_big} build host "
+          f"{build['host_s']:.3f} s, device {build['device_s']:.3f} s",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "gram_int8_tiles",
         "route": "cuda",
@@ -526,6 +731,27 @@ def main():
             "tiled_upper": tiled_modes["upper"][2],
             "tiled_all": tiled_modes["all"][2],
             "dense_upper": main_plain_ms,
+        },
+    }, {
+        "name": "gram_bf16_tiles",
+        "route": "cuda",
+        "source": "kspider_tpu_torch/csrc/gram_int8.cu",
+        "replaces": REPLACES,
+        "also_replaces": ALSO_REPLACES,
+        "compute_dtype": "bfloat16",
+        "launches": bf16_launches,
+        "max_abs_err": max_err_bf16,
+        "ms": tiled_modes_bf16["all"][1],
+        "plain_ms": tiled_modes_bf16["all"][2],
+        "ms_by_mode": {
+            "tiled_upper": tiled_modes_bf16["upper"][1],
+            "tiled_all": tiled_modes_bf16["all"][1],
+            "dense_upper": results_bf16[0][1],
+        },
+        "plain_ms_by_mode": {
+            "tiled_upper": tiled_modes_bf16["upper"][2],
+            "tiled_all": tiled_modes_bf16["all"][2],
+            "dense_upper": results_bf16[0][2],
         },
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,17 @@
 """CLI of the port: ``python -m kspider_tpu_torch`` / ``kspider-torch``.
 
-``pairwise`` and ``cluster`` are the port's own and keep the option names
-of ``kspider_tpu/cli/main.py``, plus ``--device`` (default ``cuda``).
-``--cpu`` keeps its meaning: the numpy / scipy host engines.  The jax-free
-commands of the JAX package (sketch, index, hidden FASTA indexers, export,
-tools) are registered unchanged, except that ``index --device-build``,
-which would load jax, is refused.  Options that need code not ported yet
-(multi-process runs, the device index build) are refused with a message
-naming the ROADMAP item that ports them.
+``index``, ``pairwise`` and ``cluster`` are the port's own and keep the
+option names of ``kspider_tpu/cli/main.py``, plus ``--device`` (default
+``cuda``), the torch device of ``index --device-build`` and of the Gram
+kernel.  ``--cpu`` keeps its meaning: the numpy / scipy host engines.  The
+other jax-free commands of the JAX package (sketch, hidden FASTA indexers,
+export, tools) are registered unchanged.  Options that need code not ported
+yet (multi-process runs) are refused with a message naming the ROADMAP
+item that ports them.
 """
 
 import os
+from glob import glob
 
 import click
 
@@ -37,17 +38,8 @@ def _not_ported(log, what, item):
     )
 
 
-def _index(**kwargs):
-    if kwargs["device_build"]:
-        _not_ported(click.get_current_context().obj, "index --device-build",
-                    "Device index build")
-    return tpu_cli.index.callback(**kwargs)
-
-
 for _cmd, _priority in (
     (tpu_cli.sketch, 1),
-    (click.Command(name="index", callback=_index, params=tpu_cli.index.params,
-                   help=tpu_cli.index.help), 2),
     (tpu_cli.index_kmers, 1),
     (tpu_cli.index_skipmers, 2),
     (tpu_cli.index_protein, 3),
@@ -58,6 +50,59 @@ for _cmd, _priority in (
     cli.help_priorities[_cmd.name] = _priority
 
 
+@cli.command(name="index", help_priority=2)
+@click.option("--dir", "sketches_dir", required=True, help="Sketches directory (must contain only the sketches)")
+@click.option("-k", "--kmer-size", "ksize", required=False, default=0, type=click.INT, help="kmer size (required for --sourmash and --bins)")
+@click.option("--sourmash", "sourmash", is_flag=True, show_default=True, default=False, help="index sourmash signature (.sig) files")
+@click.option("--bins", "bins", is_flag=True, show_default=True, default=False, help="index .bin hash-set files")
+@click.option("-o", "--output", "output_prefix", required=False, default=None, help="index output prefix (default: directory basename, in CWD)")
+@click.option("--device-build", "device_build", is_flag=True, default=False, help="run the postings sort/dedup/singleton filter on --device (ops/device_build.py)")
+@click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of --device-build (cuda, cuda:N or cpu)")
+@click.pass_context
+def index(ctx, sketches_dir, sourmash, bins, ksize, output_prefix, device_build, device_name):
+    """Index all sketches in a directory."""
+    from kspider_tpu_torch.core import dataset
+
+    log = ctx.obj
+    if not os.path.exists(sketches_dir):
+        log.ERROR(f"{sketches_dir} does not exist!")
+    device = _resolve(log, device_name, False) if device_build else None
+
+    if sourmash:
+        if not ksize:
+            log.ERROR("must select kSize when using --sourmash")
+        log.INFO(f"Indexing sourmash sigs in {sketches_dir} with kSize={ksize}.")
+        dataset.index_sigs_dir(sketches_dir, ksize, output_prefix=output_prefix, logger=log, device=device)
+        log.SUCCESS("DONE!")
+        return
+
+    if bins or glob(f"{sketches_dir}/*.bin"):
+        if not ksize:
+            log.ERROR("must select kSize when indexing .bin sketches")
+        log.INFO(f"Indexing bins in {sketches_dir}.")
+        dataset.index_bins_dir(sketches_dir, ksize, output_prefix=output_prefix, logger=log, device=device)
+        log.SUCCESS("DONE!")
+        return
+
+    # reference consistency check for the kProcessor sketch path
+    all_extra = glob(f"{sketches_dir}/*extra")
+    all_phmap = glob(f"{sketches_dir}/*phmap")
+    all_mqf = glob(f"{sketches_dir}/*mqf")
+    if len(all_extra) != (len(all_phmap) + len(all_mqf)):
+        log.ERROR("Inconsistent sketches files.")
+    if not all_phmap and not all_mqf:
+        log.ERROR(
+            f"no sketches found in {sketches_dir}; expected .sig, .bin, or "
+            ".phmap files"
+        )
+    log.INFO(f"Indexing sketches in {sketches_dir}.")
+    try:
+        dataset.index_kf_dir(sketches_dir, output_prefix=output_prefix, logger=log, device=device)
+    except ValueError as e:
+        log.ERROR(str(e))
+    log.SUCCESS("DONE!")
+
+
 @cli.command(name="pairwise", help_priority=3)
 @click.option("-i", "--index-prefix", "index_prefix", required=True, type=click.STRING, help="Index file prefix")
 @click.option("--estimate-ani", "ani", is_flag=True, show_default=True, default=False, help="estimate ANI and write result in a new file with single column")
@@ -65,7 +110,7 @@ for _cmd, _priority in (
 @click.option("-s", "--scale", "sourmash_scale", required=False, default=0, type=int, help="scale used in creating sourmash sigs (only when using --estimate-ani)")
 @click.option("--cpu", "force_cpu", is_flag=True, default=False, help="use the host (numpy) engine instead of the GPU kernel")
 @click.option("--device", "device_name", default="cuda", show_default=True, type=click.STRING, help="torch device of the Gram kernel (cuda, cuda:N or cpu)")
-@click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "tiled"]), help="co-occurrence engine (tiled = panel-streamed, any N; auto takes it above 16,384 samples on a device)")
+@click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "bitmask", "pallas", "scatter", "tiled"]), help="co-occurrence engine: bitmask and pallas both run the dense engine on the one hand-written Gram kernel (on Hopper the XLA-bitmask and Pallas variants are that kernel); scatter = postings scatter + int8 matmul; tiled = panel-streamed, any N; auto = dense, or tiled above 16,384 samples on a device.  With --cpu every engine but tiled is the numpy engine")
 @click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width for the tiled engine")
 @click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="emit only pairs with at least this many shared k-mers")
 @click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="ship sparse panel sides as posting keys and pack them on the device (tiled engine; default: env KSPIDER_DEVICE_PACK or auto; the dense engine packs on the host)")

@@ -150,15 +150,19 @@ def write_pairwise_rows_coo(
             f.write("\n")
 
 
-def compute_shared_matrix(index: ColorIndex, *, device) -> np.ndarray:
+def compute_shared_matrix(
+    index: ColorIndex, *, device, engine: str = "auto"
+) -> np.ndarray:
     """S[i, j] = number of k-mer hashes shared by groups i and j (int64).
 
-    ``device=None`` runs the numpy host reference (the CLI's ``--cpu``)."""
+    ``device=None`` runs the numpy host reference (the CLI's ``--cpu``)
+    whatever the engine, as kspider_tpu does; otherwise ``engine`` picks
+    the dense or the scatter engine (``ops.pairwise.ENGINES``)."""
     args = (index.color_offsets, index.color_members, index.color_counts,
             index.num_groups)
     if device is None:
         return pairwise_ops.shared_kmer_matrix_numpy(*args)
-    return pairwise_ops.shared_kmer_matrix(*args, device=device)
+    return pairwise_ops.shared_kmer_matrix(*args, device=device, engine=engine)
 
 
 def run_pairwise(
@@ -179,8 +183,10 @@ def run_pairwise(
     than ``AUTO_TILED_THRESHOLD`` samples, takes the panel-streamed engine
     (on the CPU when ``device`` is None) with ``panel``-wide panels and
     ``device_pack`` (see ``ops.bitmask.device_pack_policy``), and returns
-    None: the pairs then live only in the TSV.  Otherwise returns the dense
-    shared matrix."""
+    None: the pairs then live only in the TSV.  Otherwise ``engine``
+    ("auto", "bitmask", "pallas" or "scatter", see
+    :func:`compute_shared_matrix`) computes the dense shared matrix, which
+    is returned."""
     t0 = time.perf_counter()
     if index is None:
         from kspider_tpu.io import artifacts, npz_index
@@ -215,7 +221,7 @@ def run_pairwise(
             )
             print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
         return None
-    shared = compute_shared_matrix(index, device=device)
+    shared = compute_shared_matrix(index, device=device, engine=engine)
     if echo_timers:
         print(
             f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"

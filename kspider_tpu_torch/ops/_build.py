@@ -72,10 +72,12 @@ def library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ks_gram_tile.restype = ci
     lib.ks_gram_tile.argtypes = []
-    lib.ks_gram_chunk.restype = ci
-    lib.ks_gram_chunk.argtypes = []
-    lib.ks_gram_int8_tiles.restype = ci
-    lib.ks_gram_int8_tiles.argtypes = [
-        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
-    ]
+    for name in ("ks_gram_chunk", "ks_gram_chunk_bf16"):
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = []
+    for name in ("ks_gram_int8_tiles", "ks_gram_bf16_tiles"):
+        getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+        ]
     return lib

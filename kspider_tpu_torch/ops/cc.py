@@ -5,9 +5,12 @@ index as label; each round scatters the smaller endpoint label of every
 edge onto both endpoints (``scatter_reduce`` with ``amin``), then halves
 paths twice (``labels = labels[labels]``).  It stops when a round changes
 nothing, so it converges in O(log n) rounds, and a final gather points
-every node at its component's minimum node index.  The dense-adjacency
-variant of the fused step is not ported yet.
+every node at its component's minimum node index.
+:func:`connected_components_dense` runs the same rounds over a dense
+boolean adjacency, for the fused step (``parallel/step.py``).
 """
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +38,36 @@ def connected_components(
             break
         labels = nxt
     return labels[labels].to(torch.int32).cpu().numpy()
+
+
+def connected_components_dense(
+    adj: torch.Tensor, stats: Optional[dict] = None
+) -> torch.Tensor:
+    """Labels (int32 tensor on ``adj``'s device) over a dense boolean
+    adjacency ``[n, n]``: each node's component minimum node index.
+
+    Counterpart of ``kspider_tpu/ops/cc.py:connected_components_dense``:
+    each round takes the minimum label over every node's neighbours (self
+    included), then halves paths twice; it stops when a round changes
+    nothing.  ``stats``, if given, receives the number of ``rounds``."""
+    n = adj.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=adj.device)
+    a = adj | eye
+    labels = torch.arange(n, dtype=torch.int32, device=adj.device)
+    none = torch.tensor(n, dtype=torch.int32, device=adj.device)
+    rounds = 0
+    while True:
+        rounds += 1
+        neigh = torch.where(a, labels[None, :], none).amin(dim=1)
+        nxt = torch.minimum(labels, neigh)
+        nxt = nxt[nxt]
+        nxt = nxt[nxt]
+        if torch.equal(nxt, labels):
+            break
+        labels = nxt
+    if stats is not None:
+        stats["rounds"] = rounds
+    return labels[labels]
 
 
 def connected_components_scipy(

@@ -11,6 +11,12 @@ output tile pairs: "all tiles" of a rectangle covers the square and
 rectangle kernels, "upper tiles" of one panel covers the triangle kernel
 and, after ``mirror_upper_tiles``, the symmetric one.
 
+Both ``compute_dtype`` forms of the Pallas kernels are ported:
+``torch.int8`` (the default: int8 products into int32) and
+``torch.bfloat16`` (bf16 operands, float32 partial sums inside one color
+block, each block's sum added into int32).  Both are exact; no CLI path
+sets bf16, as in kspider_tpu.
+
 Inputs keep the JAX package's transposed layout, colors contiguous:
 ``bits_t u8[NB, n_pad/8, block]`` (MSB-first) and ``wl_t i8[NB, L, block]``.
 The TPU's VMEM budgets (``best_strip``, ``sym_fits``, ``auto_tile``) have
@@ -28,7 +34,10 @@ from kspider_tpu_torch.ops import pairwise as pw
 
 #: output tile edge of the CUDA kernel (``kTile`` in csrc/gram_int8.cu)
 TILE = 128
-#: colors per color block; the kernel needs a multiple of its 128-color chunk
+#: colors per chunk of the kernel's int8 form (``Int8Form::kChunk``); the
+#: bf16 form's is 64
+CHUNK = 128
+#: colors per color block; the kernel needs a multiple of its chunk
 BLOCK = 1024
 #: color blocks packed and shipped to the device per kernel launch
 CHUNK_BLOCKS = 64
@@ -39,6 +48,18 @@ LAUNCHES = 0
 #: TPU's tri/sym kernels), "all" (every tile of a grid, square or rect) or
 #: "list" (any other list)
 LAUNCHES_BY_MODE = {"upper": 0, "all": 0, "list": 0}
+#: the same launches by compute dtype
+LAUNCHES_BY_DTYPE = {"int8": 0, "bfloat16": 0}
+
+#: per compute dtype: its name in LAUNCHES_BY_DTYPE, the library's launch
+#: entry point and the entry point giving its color chunk
+_FORMS = {
+    torch.int8: ("int8", "ks_gram_int8_tiles", "ks_gram_chunk"),
+    torch.bfloat16: ("bfloat16", "ks_gram_bf16_tiles", "ks_gram_chunk_bf16"),
+}
+#: largest color block of the bf16 form: its float32 partial sums, at most
+#: 127 per color, stay exact below 2**24
+MAX_BF16_BLOCK = 2**24 // 127
 
 
 def pack_inputs(
@@ -116,34 +137,76 @@ def mirror_upper_tiles(s: torch.Tensor, tile: int) -> torch.Tensor:
 
 
 def _unpack_t(bits_t: torch.Tensor) -> torch.Tensor:
-    """u8[NB, n_pad/8, block] -> float64 0/1 [n_pad, NB*block]."""
-    a = bm.unpack_bits_to_int8(bits_t.transpose(1, 2))  # [NB, block, n_pad]
-    return a.permute(2, 0, 1).reshape(a.shape[2], -1).to(torch.float64)
+    """u8[NB, n_pad/8, block] -> int8 0/1 [NB, n_pad, block]."""
+    return bm.unpack_bits_to_int8(bits_t.transpose(1, 2)).transpose(1, 2)
+
+
+def _colors_flat_f64(a: torch.Tensor) -> torch.Tensor:
+    """int8 [NB, n_pad, block] -> float64 [n_pad, NB*block]."""
+    return a.permute(1, 0, 2).reshape(a.shape[1], -1).to(torch.float64)
+
+
+def _check_dtype(compute_dtype, block: int) -> str:
+    """The compute dtype's name; raises on a dtype or block it cannot take."""
+    if compute_dtype not in _FORMS:
+        raise ValueError(f"compute_dtype {compute_dtype} is neither torch.int8 "
+                         "nor torch.bfloat16")
+    if compute_dtype == torch.bfloat16 and block > MAX_BF16_BLOCK:
+        raise ValueError(f"block {block} > {MAX_BF16_BLOCK}: the bf16 form's "
+                         "float32 block sums would not be exact")
+    return _FORMS[compute_dtype][0]
+
+
+def _through_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Cast to bf16 and back to float32: the bf16 operand, multiplied in
+    float32 (a matmul of two bf16 tensors would round its bf16 result)."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def cooccurrence_tiles_plain(
-    bits_i_t, bits_j_t, wl_t, tile_i, tile_j, *, tile: int, out
+    bits_i_t, bits_j_t, wl_t, tile_i, tile_j, *, tile: int, out,
+    compute_dtype=torch.int8,
 ):
     """Plain torch version of :func:`cooccurrence_tiles`.
 
-    Unpacks with shifts, scales the j side by the limb and multiplies in
-    float64.  Every partial sum is an integer below 2**31 < 2**53, so the
-    result is exact in any summation order, on the CPU and on the card."""
+    Unpacks with shifts and scales the j side by the limb.  The int8 form
+    multiplies in float64 over all colors at once: every partial sum is an
+    integer below 2**31 < 2**53, so the result is exact in any summation
+    order.  The bf16 form follows the bf16 kernel's dataflow: operands cast
+    through bf16, one float32 product per color block (integers below
+    2**24, exact), each added into int32.  Exact on the CPU and on the
+    card, also under TF32, which keeps integers up to 127."""
+    _check_dtype(compute_dtype, bits_i_t.shape[2])
     n_limbs = wl_t.shape[1]
     a_i = _unpack_t(bits_i_t)
     a_j = a_i if bits_j_t is bits_i_t else _unpack_t(bits_j_t)
-    w = wl_t.transpose(0, 1).reshape(n_limbs, -1).to(torch.float64)
     pairs = list(zip(np.asarray(tile_i).tolist(), np.asarray(tile_j).tolist()))
+    if compute_dtype == torch.bfloat16:
+        a_i_f = _through_bf16(a_i)
+        for l in range(n_limbs):
+            # int8 stays exact: a bit times a limb is at most 127
+            wa_j = _through_bf16(a_j * wl_t[:, l, None, :])
+            for i, j in pairs:
+                rows = slice(i * tile, (i + 1) * tile)
+                cols = slice(j * tile, (j + 1) * tile)
+                per_block = torch.bmm(a_i_f[:, rows], wa_j[:, cols].transpose(1, 2))
+                out[l, rows, cols] += per_block.to(torch.int32).sum(
+                    0, dtype=torch.int32)
+        return out
+    a_i_f = _colors_flat_f64(a_i)
+    a_j_f = a_i_f if a_j is a_i else _colors_flat_f64(a_j)
+    w = wl_t.transpose(0, 1).reshape(n_limbs, -1).to(torch.float64)
     for l in range(n_limbs):
-        wa_j = a_j * w[l]
+        wa_j = a_j_f * w[l]
         for i, j in pairs:
             rows = slice(i * tile, (i + 1) * tile)
             cols = slice(j * tile, (j + 1) * tile)
-            out[l, rows, cols] += (a_i[rows] @ wa_j[cols].T).to(torch.int32)
+            out[l, rows, cols] += (a_i_f[rows] @ wa_j[cols].T).to(torch.int32)
     return out
 
 
-def _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out):
+def _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out,
+                       compute_dtype):
     from kspider_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -178,9 +241,10 @@ def _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out):
     if npad_i % tile or npad_j % tile:
         raise ValueError(f"sample padding {npad_i}x{npad_j} is not a "
                          f"multiple of the {tile}-wide tile")
-    if block % lib.ks_gram_chunk():
+    chunk = getattr(lib, _FORMS[compute_dtype][2])()
+    if block % chunk:
         raise ValueError(f"block {block} is not a multiple of the kernel's "
-                         f"{lib.ks_gram_chunk()}-color chunk")
+                         f"{chunk}-color chunk ({compute_dtype} form)")
     if len(ti) != len(tj):
         raise ValueError("tile_i and tile_j differ in length")
     if len(ti) and (ti.min() < 0 or tj.min() < 0 or ti.max() >= npad_i // tile
@@ -190,26 +254,31 @@ def _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out):
 
 
 def cooccurrence_tiles(
-    bits_i_t, bits_j_t, wl_t, tile_i, tile_j, *, tile: int, out
+    bits_i_t, bits_j_t, wl_t, tile_i, tile_j, *, tile: int, out,
+    compute_dtype=torch.int8,
 ):
     """``out[l, tile i, tile j] += sum_c bit_i[c] * w_l[c] * bit_j[c]`` for
     every pair ``(tile_i[p], tile_j[p])``; returns ``out``.
 
     ``bits_i_t u8[NB, npad_i/8, block]``, ``bits_j_t u8[NB, npad_j/8,
     block]``, ``wl_t i8[NB, L, block]``, ``out i32[L, npad_i, npad_j]``;
-    ``tile_i``/``tile_j`` are host int arrays.  A CUDA tensor launches the
-    hand-written kernel (or raises); a CPU tensor takes
-    :func:`cooccurrence_tiles_plain`."""
+    ``tile_i``/``tile_j`` are host int arrays.  ``compute_dtype`` picks the
+    kernel's form, ``torch.int8`` or ``torch.bfloat16`` (``block`` at most
+    ``MAX_BF16_BLOCK``).  A CUDA tensor launches the hand-written kernel (or
+    raises); a CPU tensor takes :func:`cooccurrence_tiles_plain`."""
     global LAUNCHES
+    dtype_name = _check_dtype(compute_dtype, bits_i_t.shape[2])
     if bits_i_t.device.type == "cpu":
         return cooccurrence_tiles_plain(
-            bits_i_t, bits_j_t, wl_t, tile_i, tile_j, tile=tile, out=out
+            bits_i_t, bits_j_t, wl_t, tile_i, tile_j, tile=tile, out=out,
+            compute_dtype=compute_dtype,
         )
     if bits_i_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {bits_i_t.device}")
     ti = np.ascontiguousarray(tile_i, dtype=np.int32)
     tj = np.ascontiguousarray(tile_j, dtype=np.int32)
-    lib = _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out)
+    lib = _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out,
+                             compute_dtype)
     if len(ti) == 0 or wl_t.shape[1] == 0:
         return out
     dev = bits_i_t.device
@@ -222,16 +291,18 @@ def cooccurrence_tiles(
     else:
         ti_d, tj_d = _device_tiles(mode, dev)
     with torch.cuda.device(dev):
-        rc = lib.ks_gram_int8_tiles(
+        rc = getattr(lib, _FORMS[compute_dtype][1])(
             bits_i_t.data_ptr(), bits_j_t.data_ptr(), wl_t.data_ptr(),
             ti_d.data_ptr(), tj_d.data_ptr(), out.data_ptr(),
             len(ti), nb, block, wl_t.shape[1], 8 * n8_i,
             8 * bits_j_t.shape[1], torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"gram_int8 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gram kernel launch ({dtype_name} form) failed: "
+                           f"CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_BY_MODE["list" if mode is None else mode[0]] += 1
+    LAUNCHES_BY_DTYPE[dtype_name] += 1
     return out
 
 
@@ -244,8 +315,10 @@ def shared_kmer_matrix_cuda(
     device,
     block: int = BLOCK,
     drop_singletons: bool = True,
+    compute_dtype=torch.int8,
 ) -> np.ndarray:
-    """Exact shared-k-mer matrix (int64, NxN) through :func:`cooccurrence_tiles`.
+    """Exact shared-k-mer matrix (int64, NxN) through :func:`cooccurrence_tiles`
+    in the ``compute_dtype`` form (as ``shared_kmer_matrix_pallas``'s).
 
     Singleton colors are dropped, weights split into limbs, colors cut into
     int32-exact super-blocks; each super-block streams ``CHUNK_BLOCKS``-block
@@ -253,24 +326,11 @@ def shared_kmer_matrix_cuda(
     upper tiles, which is recombined into int64 on the device, mirrored,
     cut to ``[:n, :n]`` and given a zero diagonal."""
     device = resolve_device(device)
-    offsets = np.asarray(offsets, dtype=np.int64)
-    members = np.asarray(members, dtype=np.int32)
-    weights = np.asarray(weights, dtype=np.int64)
-    degrees = np.diff(offsets)
-    keep = (
-        np.flatnonzero(degrees >= 2) if drop_singletons else np.arange(len(degrees))
-    )
-    if len(keep) == 0 or n == 0:
+    new_offsets, new_members, new_weights = pw._drop_singletons(
+        np.asarray(offsets, dtype=np.int64), np.asarray(members, dtype=np.int32),
+        np.asarray(weights, dtype=np.int64), drop_singletons)
+    if len(new_weights) == 0 or n == 0:
         return np.zeros((n, n), dtype=np.int64)
-
-    kept_deg = degrees[keep]
-    new_offsets = np.zeros(len(keep) + 1, dtype=np.int64)
-    np.cumsum(kept_deg, out=new_offsets[1:])
-    gather = np.repeat(offsets[keep], kept_deg) + (
-        np.arange(int(kept_deg.sum())) - np.repeat(new_offsets[:-1], kept_deg)
-    )
-    new_members = members[gather]
-    new_weights = weights[keep]
 
     w_limbs = pw.weight_limbs(new_weights)
     n_limbs = w_limbs.shape[1]
@@ -293,7 +353,7 @@ def shared_kmer_matrix_cuda(
             bits = torch.from_numpy(bits_t).to(device)
             cooccurrence_tiles(
                 bits, bits, torch.from_numpy(wl_t).to(device), ti, tj,
-                tile=TILE, out=acc,
+                tile=TILE, out=acc, compute_dtype=compute_dtype,
             )
         for l in range(n_limbs):
             total.add_(acc[l], alpha=128**l)

@@ -223,3 +223,95 @@ def test_cuda_without_card_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         tpw.shared_kmer_matrix(np.array([0, 2]), np.array([0, 1], np.int32),
                                np.array([3]), 2, device="cuda")
+
+
+# ---- the bf16 form vs the Pallas kernels' compute_dtype=bfloat16 --------
+
+
+def run_port_bf16(bits_i, bits_j, wl, ti, tj, npad_i, npad_j):
+    out = torch.zeros((wl.shape[1], npad_i, npad_j), dtype=torch.int32)
+    bi = torch.from_numpy(bits_i)
+    bj = bi if bits_j is bits_i else torch.from_numpy(bits_j)
+    cp.cooccurrence_tiles(bi, bj, torch.from_numpy(wl), ti, tj, tile=TILE,
+                          out=out, compute_dtype=torch.bfloat16)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("n_limbs", [1, 3])
+def test_bf16_all_tiles_square_matches_pallas(n_limbs):
+    bits_t, wl_t = packed(70 + n_limbs, 300, 250, 256, n_limbs)
+    want = np.asarray(jpp.cooccurrence_pallas(
+        bits_t, wl_t, BLOCK, 256, n_limbs, tile=TILE,
+        compute_dtype=jax.numpy.bfloat16, interpret=True))
+    got = run_port_bf16(bits_t, bits_t, wl_t, *cp.all_tiles(2, 2), 256, 256)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2])
+def test_bf16_all_tiles_rect_matches_pallas_rect(n_limbs):
+    bits_i, wl_t = packed(80 + n_limbs, 260, 200, 256, n_limbs)
+    bits_j, _ = packed(90 + n_limbs, 260, 320, 384, n_limbs)
+    want = np.asarray(jpp.cooccurrence_pallas_rect(
+        bits_i, bits_j, wl_t, BLOCK, 256, 384, n_limbs, tile=TILE,
+        compute_dtype=jax.numpy.bfloat16, interpret=True))
+    got = run_port_bf16(bits_i, bits_j, wl_t, *cp.all_tiles(2, 3), 256, 384)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_limbs", [2, 3])
+def test_bf16_upper_tiles_match_pallas_tri(n_limbs):
+    bits_t, wl_t = packed(100 + n_limbs, 300, 300, 384, n_limbs)
+    ti, tj = cp.upper_triangle_tiles(3)
+    want = np.asarray(jpp.cooccurrence_pallas_tri(
+        bits_t, wl_t, ti, tj, BLOCK, 384, n_limbs, tile=TILE,
+        compute_dtype=jax.numpy.bfloat16, interpret=True))
+    got = run_port_bf16(bits_t, bits_t, wl_t, ti, tj, 384, 384)
+    for i, j in zip(ti, tj):
+        sl = (slice(None), slice(i * TILE, (i + 1) * TILE),
+              slice(j * TILE, (j + 1) * TILE))
+        assert np.array_equal(got[sl], want[sl]), (i, j)
+
+
+def test_bf16_upper_tiles_mirrored_match_pallas_sym():
+    bits_t, wl_t = packed(110, 300, 310, 384, 2)
+    sym = np.asarray(jpp.cooccurrence_pallas_sym(
+        bits_t, wl_t, BLOCK, 384, 2, strip=TILE,
+        compute_dtype=jax.numpy.bfloat16, interpret=True))
+    want = np.stack([jpp.mirror_upper_tiles(s.copy(), TILE) for s in sym])
+    got = run_port_bf16(bits_t, bits_t, wl_t, *cp.upper_triangle_tiles(3), 384, 384)
+    got = cp.mirror_upper_tiles(torch.from_numpy(got), TILE).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_bf16_equals_int8_form():
+    bits_t, wl_t = packed(120, 400, 300, 384, 3, max_degree=12)
+    tiles = cp.all_tiles(3, 3)
+    want = run_port(bits_t, bits_t, wl_t, *tiles, 384, 384)
+    assert np.array_equal(run_port_bf16(bits_t, bits_t, wl_t, *tiles, 384, 384), want)
+
+
+def test_bf16_shared_kmer_matrix_matches_pallas():
+    # the shape of tests/test_bitmask_pallas.py::test_pallas_engine_matches_numpy
+    rng = np.random.default_rng(130)
+    o, m, w = random_csr(rng, 600, 150, max_degree=10, max_weight=40000)
+    want = jpp.shared_kmer_matrix_pallas(o, m, w, 150, block=128, tile=128,
+                                         compute_dtype=jax.numpy.bfloat16)
+    got = cp.shared_kmer_matrix_cuda(o, m, w, 150, device="cpu", block=128,
+                                     compute_dtype=torch.bfloat16)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert np.array_equal(got, jpw.shared_kmer_matrix_numpy(o, m, w, 150))
+
+
+def test_bf16_refuses_blocks_past_float32_exactness():
+    assert cp.MAX_BF16_BLOCK * 127 < 2**24 <= (cp.MAX_BF16_BLOCK + 1) * 127
+    block = cp.MAX_BF16_BLOCK + 1
+    bits = torch.zeros((1, 16, block), dtype=torch.uint8)
+    wl = torch.zeros((1, 1, block), dtype=torch.int8)
+    out = torch.zeros((1, 128, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exact"):
+        cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=TILE, out=out,
+                              compute_dtype=torch.bfloat16)
+    cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=TILE, out=out)
+    with pytest.raises(ValueError, match="neither"):
+        cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=TILE, out=out,
+                              compute_dtype=torch.float16)

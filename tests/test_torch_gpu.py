@@ -1,4 +1,5 @@
-"""The hand-written CUDA Gram kernel vs its plain torch version, on the card.
+"""The hand-written CUDA Gram kernel vs its plain torch version, and the
+port's other device paths, on the card.
 
 Every case is marked ``gpu`` and skips without a CUDA card.  The file
 imports neither jax nor kspider_tpu's jax modules, so it also runs on a
@@ -10,8 +11,10 @@ machine without jax (``tests/conftest.py`` imports jax, hence
 The plain version is held against kspider_tpu's Pallas kernels on the CPU
 in tests/test_torch_cuda_pairwise.py, and the panel-streamed engine and the
 torch device pack against kspider_tpu's in tests/test_torch_tiled_pairwise.py
-and tests/test_torch_device_pack.py.  Here the same code runs on the card
-and must equal its CPU run.  Tolerance: exact equality.
+and tests/test_torch_device_pack.py; the device index build, the fused
+step and the scatter engine in tests/test_torch_{device_build,step,scatter}.py.
+Here the same code runs on the card and must equal its CPU run, numpy or
+scipy.  Tolerance: exact equality.
 """
 
 import numpy as np
@@ -19,7 +22,9 @@ import pytest
 import torch
 
 from kspider_tpu_torch.ops import bitmask as tbm
+from kspider_tpu_torch.ops import cc as tcc
 from kspider_tpu_torch.ops import cuda_pairwise as cp
+from kspider_tpu_torch.ops import device_build
 from kspider_tpu_torch.ops import pairwise as tpw
 from kspider_tpu_torch.ops import tiled_pairwise as ttp
 
@@ -51,33 +56,64 @@ def packed(seed, n_colors, n, n_pad, max_weight, block=BLOCK):
     return cp.pack_inputs(o, m, tpw.weight_limbs(w), n_pad, block)
 
 
-def run(bits_i, bits_j, wl, ti, tj, npad_i, npad_j, device):
+def run(bits_i, bits_j, wl, ti, tj, npad_i, npad_j, device,
+        compute_dtype=torch.int8, fn=cp.cooccurrence_tiles):
     out = torch.zeros((wl.shape[1], npad_i, npad_j), dtype=torch.int32,
                       device=device)
     bi = torch.from_numpy(bits_i).to(device)
     bj = bi if bits_j is bits_i else torch.from_numpy(bits_j).to(device)
-    cp.cooccurrence_tiles(bi, bj, torch.from_numpy(wl).to(device), ti, tj,
-                          tile=cp.TILE, out=out)
+    fn(bi, bj, torch.from_numpy(wl).to(device), ti, tj, tile=cp.TILE, out=out,
+       compute_dtype=compute_dtype)
     return out.cpu().numpy()
+
+
+def mode_args(mode, max_weight, block):
+    bits_i, wl_t = packed(max_weight, 1500, 250, 256, max_weight, block)
+    bits_j, _ = packed(max_weight + 1, 1500, 380, 384, max_weight, block)
+    if mode == "square":
+        return (bits_i, bits_i, wl_t, *cp.all_tiles(2, 2), 256, 256)
+    if mode == "rect":
+        return (bits_i, bits_j, wl_t, *cp.all_tiles(2, 3), 256, 384)
+    return (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(3), 384, 384)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["square", "rect", "upper"])
 @pytest.mark.parametrize("max_weight,block", [(127, 128), (16000, 1024), (40000, 256)])
 def test_kernel_matches_plain(cuda_device, mode, max_weight, block):
-    bits_i, wl_t = packed(max_weight, 1500, 250, 256, max_weight, block)
-    bits_j, _ = packed(max_weight + 1, 1500, 380, 384, max_weight, block)
-    if mode == "square":
-        args = (bits_i, bits_i, wl_t, *cp.all_tiles(2, 2), 256, 256)
-    elif mode == "rect":
-        args = (bits_i, bits_j, wl_t, *cp.all_tiles(2, 3), 256, 384)
-    else:
-        args = (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(3), 384, 384)
+    args = mode_args(mode, max_weight, block)
     before = cp.LAUNCHES
     got = run(*args, device=cuda_device)
     torch.cuda.synchronize()
     assert cp.LAUNCHES == before + 1
     assert np.array_equal(got, run(*args, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["square", "rect", "upper"])
+@pytest.mark.parametrize("max_weight,block", [(127, 64), (16000, 1024), (40000, 192)])
+def test_bf16_kernel_matches_plain(cuda_device, mode, max_weight, block):
+    args = mode_args(mode, max_weight, block)
+    before = dict(cp.LAUNCHES_BY_DTYPE)
+    got = run(*args, device=cuda_device, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cp.LAUNCHES_BY_DTYPE["bfloat16"] == before["bfloat16"] + 1
+    assert cp.LAUNCHES_BY_DTYPE["int8"] == before["int8"]
+    # the plain version on the card, on the CPU, and the int8 form's
+    assert np.array_equal(got, run(*args, device=cuda_device,
+                                   compute_dtype=torch.bfloat16,
+                                   fn=cp.cooccurrence_tiles_plain))
+    assert np.array_equal(got, run(*args, device="cpu", compute_dtype=torch.bfloat16))
+    assert np.array_equal(got, run(*args, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_bf16_shared_kmer_matrix_on_card(cuda_device):
+    rng = np.random.default_rng(12)
+    o, m, w = random_csr(rng, 3000, 700, 12, 40000)
+    got = cp.shared_kmer_matrix_cuda(o, m, w, 700, device=cuda_device,
+                                     block=BLOCK, compute_dtype=torch.bfloat16)
+    assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, 700))
 
 
 @pytest.mark.gpu
@@ -104,6 +140,11 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=128,
                               out=out.to(torch.int64))
+    bits = torch.zeros((1, 16, 96), dtype=torch.uint8, device=cuda_device)
+    wl = torch.zeros((1, 1, 96), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="64-color chunk"):
+        cp.cooccurrence_tiles(bits, bits, wl, [0], [0], tile=128, out=out,
+                              compute_dtype=torch.bfloat16)
 
 
 class _Index:
@@ -162,3 +203,75 @@ def test_device_pack_on_card_equals_host(cuda_device):
                                                  *geometry, device=cuda_device))
     for g in got:
         assert g.is_cuda and np.array_equal(g.cpu().numpy(), host)
+
+
+@pytest.mark.gpu
+def test_compact_multi_postings_on_card(cuda_device):
+    rng = np.random.default_rng(19)
+    pool = rng.integers(0, 2**64 - 1, size=3000, dtype=np.uint64, endpoint=True)
+    hashes = pool[rng.integers(0, len(pool), size=200_000)]
+    assert (hashes >= np.uint64(2**63)).sum() > 1000
+    gids = rng.integers(0, 300, size=len(hashes)).astype(np.int32)
+    stats = {}
+    got_h, got_g = device_build.compact_multi_postings(
+        hashes, gids, device=cuda_device, stats=stats)
+    # numpy brute force: unique (hash, gid) pairs in unsigned order, kept
+    # where the hash has >= 2 samples
+    pairs = np.unique(np.stack([hashes, gids.astype(np.uint64)]), axis=1)
+    _, inv, run = np.unique(pairs[0], return_inverse=True, return_counts=True)
+    keep = run[inv] >= 2
+    assert np.array_equal(got_h, pairs[0][keep])
+    assert np.array_equal(got_g, pairs[1][keep].astype(np.int32))
+    assert stats["postings_kept"] == int(keep.sum()) and stats["sort_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_build_index_device_on_card_equals_host(cuda_device):
+    from kspider_tpu.core.index import build_index_from_hash_sets
+    from kspider_tpu_torch.core.index import build_index_device
+
+    rng = np.random.default_rng(23)
+    universe = np.unique(rng.integers(0, 2**64 - 1, size=20000, dtype=np.uint64,
+                                      endpoint=True))
+    arrays = [universe[rng.random(len(universe)) < 0.2] for _ in range(40)]
+    arrays[7] = None
+    names = [f"s{i}" for i in range(40)]
+    host = build_index_from_hash_sets(names, arrays, ksize=21)
+    dev = build_index_device(names, arrays, ksize=21, device=cuda_device)
+    for field in ("group_kmer_count", "color_ids", "color_offsets",
+                  "color_members", "color_counts"):
+        assert np.array_equal(getattr(host, field), getattr(dev, field)), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,cutoff", [(32, 0.01), (8, 0.02), (256, 0.3)])
+def test_single_device_step_on_card(cuda_device, block, cutoff):
+    from kspider_tpu_torch.parallel import step
+
+    bits, wl, counts, block, n_pad, n_limbs = step.make_example_blocks(
+        n_samples=300, n_colors=1200, block=block, seed=block)
+    before = cp.LAUNCHES
+    shared, labels = step.single_device_step(
+        bits, wl, counts, cutoff, block, n_pad, n_limbs, device=cuda_device)
+    assert cp.LAUNCHES == before + 1
+    assert shared.is_cuda and labels.is_cuda
+    cpu_shared, cpu_labels = step.single_device_step(
+        bits, wl, counts, cutoff, block, n_pad, n_limbs, device="cpu")
+    assert torch.equal(shared.cpu(), cpu_shared)
+    s = shared.cpu().numpy()
+    denom = np.minimum(counts[:, None], counts[None, :]).astype(np.float32)
+    cont = s.astype(np.float32) / np.maximum(denom, np.float32(1.0))
+    adj = (cont >= np.float32(cutoff)) & (s > 0)
+    want = tcc.connected_components_scipy(*np.nonzero(adj), len(counts))
+    assert np.array_equal(labels.cpu().numpy(), want)
+    assert torch.equal(labels.cpu(), cpu_labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [512, 64])
+def test_scatter_engine_on_card(cuda_device, block):
+    rng = np.random.default_rng(29)
+    o, m, w = random_csr(rng, 3000, 700, 12, 40000)
+    got = tpw.shared_kmer_matrix(o, m, w, 700, device=cuda_device,
+                                 engine="scatter", block=block)
+    assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, 700))

@@ -40,6 +40,33 @@ with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
 with open(cluster.cluster_from_index(index, prefix, 0.3, device="cpu",
                                      panel=2)) as f:
     assert f.read() == "s0,s2,s4\ns1,s3,s5\n"
+# every engine name, and the device index build through the CLI
+from click.testing import CliRunner
+from kspider_tpu.io import phmap
+for engine in ("bitmask", "pallas", "scatter"):
+    assert pairwise.run_pairwise(prefix, device="cpu", engine=engine,
+                                 echo_timers=False) is not None
+    with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
+        assert f.read() == dense_tsv, engine
+bins = os.path.join(sys.argv[1], "bins")
+os.makedirs(bins)
+for i, a in enumerate(arrays):
+    phmap.write_hash_set(os.path.join(bins, f"s{i}.bin"), a)
+for out, flags in (("host", []), ("dev", ["--device-build", "--device", "cpu"])):
+    result = CliRunner().invoke(cli, ["index", "--bins", "--dir", bins, "-k", "21",
+                                      "-o", os.path.join(sys.argv[1], out), *flags])
+    assert result.exit_code == 0, result.output
+for suffix in ("_color_to_sources.bin", "_color_count.bin", ".namesMap"):
+    with open(os.path.join(sys.argv[1], "host" + suffix), "rb") as a, \
+            open(os.path.join(sys.argv[1], "dev" + suffix), "rb") as b:
+        assert a.read() == b.read(), suffix
+# the fused step
+from kspider_tpu_torch.parallel import step
+bits, wl, counts, block, n_pad, n_limbs = step.make_example_blocks(
+    n_samples=64, n_colors=256, block=32, seed=3)
+shared, labels = step.single_device_step(bits, wl, counts, 0.01, block, n_pad,
+                                         n_limbs, device="cpu")
+assert shared.shape == (64, 64) and labels.shape == (64,)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")

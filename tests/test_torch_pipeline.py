@@ -4,7 +4,7 @@ The port's ``index``, ``pairwise`` and ``cluster -c 0.55`` run through its
 click group on the CPU; kspider_tpu's ``run_pairwise``, ``cluster_index``
 and ``cluster_from_index`` run on copies of the same artifacts.
 ``_kSpider_seqToKmersNo.tsv``, ``_kSpider_pairwise.tsv`` and the clusters
-TSV must be byte-identical, on the dense and on the panel-streamed engine.
+TSV must be byte-identical, on every ``--engine`` name.
 """
 
 import filecmp
@@ -161,13 +161,56 @@ def test_unported_options_are_refused(jax_run, args):
     assert "not ported to kspider_tpu_torch yet" in result.output
 
 
-def test_device_build_is_refused(sig_collection, tmp_path):
+@pytest.fixture(scope="module")
+def jax_engine_runs(jax_run, tmp_path_factory):
+    """kspider_tpu's ``run_pairwise`` per (engine, use_tpu), on copies of the
+    port-built index; each is run once, when a test first asks for it."""
+    port_prefix, _ = jax_run
+    root = tmp_path_factory.mktemp("torch_pipeline_engines")
+    runs = {}
+
+    def run(engine, use_tpu):
+        if (engine, use_tpu) not in runs:
+            prefix = str(root / f"{engine}_{use_tpu}")
+            copy_index(port_prefix, prefix)
+            jpairwise.run_pairwise(prefix, use_tpu=use_tpu, engine=engine,
+                                   echo_timers=False)
+            runs[engine, use_tpu] = prefix
+        return runs[engine, use_tpu]
+
+    return run
+
+
+@pytest.mark.parametrize("flags,use_tpu", [(["--device", "cpu"], True),
+                                           (["--cpu"], False)])
+@pytest.mark.parametrize("engine", ["auto", "bitmask", "pallas", "scatter", "tiled"])
+def test_every_engine_name_byte_identical(jax_run, jax_engine_runs, engine,
+                                          flags, use_tpu, tmp_path):
+    """Every ``--engine`` name of kspider_tpu's ``pairwise`` is accepted and
+    writes its bytes (``--cpu``: the numpy engine for all but tiled)."""
+    port_prefix, _ = jax_run
+    prefix = str(tmp_path / "sigs")
+    copy_index(port_prefix, prefix)
+    result = invoke("pairwise", "-i", prefix, "--engine", engine, *flags)
+    assert result.exit_code == 0, result.output
+    want = jax_engine_runs(engine, use_tpu)
+    for suffix in OUTPUTS[:2]:
+        assert filecmp.cmp(prefix + suffix, want + suffix, shallow=False), suffix
+
+
+def test_cli_device_build_index_equals_host_index(sig_collection, jax_run, tmp_path):
+    """``index --device-build --device cpu`` writes the host build's five
+    artifacts, so every later stage reads the same index."""
     sigs_dir, _, ksize = sig_collection
+    port_prefix, _ = jax_run
+    prefix = str(tmp_path / "x")
     result = invoke("index", "--sourmash", "--dir", sigs_dir, "-k", str(ksize),
-                    "-o", str(tmp_path / "x"), "--device-build")
-    assert result.exit_code == 1
-    assert "index --device-build is not ported" in result.output
-    assert not os.path.exists(str(tmp_path / "x.namesMap"))
+                    "-o", prefix, "--device-build", "--device", "cpu")
+    assert result.exit_code == 0, result.output
+    for suffix in ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
+                   "_color_count.bin", ".namesMap", ".extra"):
+        assert filecmp.cmp(prefix + suffix, port_prefix + suffix,
+                           shallow=False), suffix
 
 
 def test_dense_engine_refuses_tiled_sizes(tmp_path):
