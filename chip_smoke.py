@@ -34,6 +34,18 @@ Phases, each printed on its own line; any failure exits non-zero:
 4f. the same collection written as .bin files and indexed by the CLI with
    and without ``--device-build --device cuda``: all five artifacts must
    be byte-equal;
+4g-4j. several devices and several processes on the same index, with DEVS
+   the card list (``cuda:0,cuda:1,...``), or ``cuda:0,cuda:0`` (two shards
+   on one card) on a one-card machine: 4g ``pairwise --device DEVS`` (the
+   sharded dense engine), 4h ``sharded_step`` on the blocks of 4d, 4i
+   ``pairwise --engine tiled --device DEVS`` with panels of 2,048 (pairs
+   round-robin over the devices) and 8,192 (one pair, its color blocks
+   split), 4j two coordinated worker processes merging over gloo, each on
+   its own card or both on cuda:0: the CLI's color-slice and panel-row runs
+   and ``distributed_pairwise_from_hash_sets`` on the hash sets saved to an
+   .npz.  Every TSV must equal the dense one, step outputs the fused
+   step's, every shard and every rank must launch the kernel, and no part
+   file may remain.  Per-shard kernel times come from CUDA events;
 5. tiled path at full width: a second index of T families (N = 8 T, above
    the dense engine's 16,384).  First the device index build of the same
    hash sets (``build_index_device``), whose every ColorIndex field must
@@ -53,10 +65,14 @@ and prints no result.
 """
 
 import argparse
+import contextlib
 import filecmp
+import glob
+import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -285,6 +301,42 @@ def tiled_chunk_inputs(plan, p, dev):
     return bits_a, bits_b, wl, panel_pad
 
 
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def launch_events(cp):
+    """CUDA events around every launch of the Gram kernel inside the block,
+    on the launching device's stream: yields a list of (mode, start, end),
+    mode "upper" (one side) or "all" (two sides)."""
+    real = cp.cooccurrence_tiles
+    events = []
+
+    def timed(bits_i, bits_j, wl, ti, tj, *, tile, out, **kw):
+        stream = torch.cuda.current_stream(bits_i.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        real(bits_i, bits_j, wl, ti, tj, tile=tile, out=out, **kw)
+        end.record(stream)
+        events.append(("upper" if bits_j is bits_i else "all", start, end))
+        return out
+
+    cp.cooccurrence_tiles = timed
+    try:
+        yield events
+    finally:
+        cp.cooccurrence_tiles = real
+
+
+def event_ms(events):
+    """Per-launch kernel ms of ``launch_events``, in launch order."""
+    sync_all()
+    return [start.elapsed_time(end) for _, start, end in events]
+
+
 def gram_time_by_mode(cp, ttp, plan, dev):
     """Device time of the Gram kernel on one rerun of the tiled pairs, split
     by launch mode with CUDA events around each launch; from torch.profiler
@@ -292,43 +344,28 @@ def gram_time_by_mode(cp, ttp, plan, dev):
     rerun's wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    real = cp.cooccurrence_tiles
-    events = {"upper": [], "all": []}
-
-    def timed(bits_i, bits_j, wl, ti, tj, *, tile, out):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        real(bits_i, bits_j, wl, ti, tj, tile=tile, out=out)
-        end.record()
-        events["upper" if bits_j is bits_i else "all"].append((start, end))
-        return out
-
-    cp.cooccurrence_tiles = timed
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
-                pass
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1000.0
-    finally:
-        cp.cooccurrence_tiles = real
-    by_mode = {mode: (len(ev), sum(s.elapsed_time(e) for s, e in ev))
-               for mode, ev in events.items()}
+    with launch_events(cp) as events, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
+            pass
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    ms = event_ms(events)
+    by_mode = {mode: (sum(1 for e in events if e[0] == mode),
+                      sum(t for e, t in zip(events, ms) if e[0] == mode))
+               for mode in ("upper", "all")}
     averages = prof.key_averages()
     prof_ms = kernel_ms(averages, torch.int8)
     busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in averages) / 1000.0
     return by_mode, prof_ms, busy_ms, wall_ms
 
 
-def fused_step_phase(index, dense_shared, dev, cp, launches):
-    """Phase 4d: the fused step over every non-singleton color of ``index``
-    in kspider_tpu's layout; returns (wall s, CC rounds)."""
+def step_blocks(index):
+    """Every non-singleton color of ``index`` in kspider_tpu's step layout:
+    (bits, w_limbs, kmer counts, block, n_pad, n_limbs)."""
     from kspider_tpu_torch.ops import bitmask as bm
-    from kspider_tpu_torch.ops import cc as cc_ops
     from kspider_tpu_torch.ops import pairwise as pw
-    from kspider_tpu_torch.parallel import step
 
     block = 1024
     n = index.num_groups
@@ -345,6 +382,17 @@ def fused_step_phase(index, dense_shared, dev, cp, launches):
     counts = index.group_kmer_count.astype(np.int32)
     print(f"[step N={n}] host pack of {len(w)} colors: {nb} blocks of {block}, "
           f"{bits.nbytes} B of bits, {time.perf_counter() - t0:.3f} s", flush=True)
+    return bits, wl, counts, block, n_pad, n_limbs
+
+
+def fused_step_phase(blocks, dense_shared, dev, cp, launches):
+    """Phase 4d: the fused step over ``step_blocks``; returns (wall s, CC
+    rounds, shared, labels), the last two as numpy arrays."""
+    from kspider_tpu_torch.ops import cc as cc_ops
+    from kspider_tpu_torch.parallel import step
+
+    bits, wl, counts, block, n_pad, n_limbs = blocks
+    n = len(counts)
     stats = {}
     reset_counts(cp)
     torch.cuda.synchronize()
@@ -369,7 +417,206 @@ def fused_step_phase(index, dense_shared, dev, cp, launches):
     want = cc_ops.connected_components_scipy(*np.nonzero(adj), n)
     phase("fused step labels == scipy", np.array_equal(labels, want),
           f"{len(np.unique(labels))} components")
-    return step_s, stats["rounds"]
+    return step_s, stats["rounds"], shared, labels
+
+
+def sharded_dense_phase(cli, cp, prefix, dense_tsv, devs, n_shards, launches):
+    """Phase 4g: ``pairwise --device DEVS``, the dense engine's color blocks
+    split over the shards; returns (wall s, per-launch kernel ms)."""
+    reset_counts(cp)
+    with launch_events(cp) as events:
+        wall = run_cli(cli, "pairwise", "-i", prefix, "--device", devs)
+    launches["sharded"] = read_counts(cp)
+    ms = event_ms(events)
+    print(f"[sharded N=8192] pairwise --device {devs}: stage {wall:.3f} s, "
+          f"kernel launches {launches['sharded']}, per-shard kernel ms "
+          f"{[round(t, 3) for t in ms]}", flush=True)
+    phase("sharded dense TSV == dense TSV",
+          filecmp.cmp(prefix + "_kSpider_pairwise.tsv", dense_tsv, shallow=False))
+    phase("sharded dense launched every shard",
+          launches["sharded"]["upper"] >= n_shards, f"{launches['sharded']}")
+    return wall, ms
+
+
+def sharded_step_phase(blocks, step_shared, step_labels, devs, n_shards, cp,
+                       launches):
+    """Phase 4h: ``sharded_step`` over the blocks of phase 4d, padded with
+    empty blocks to a multiple of the shard count; ``shared`` and
+    ``labels`` must equal ``single_device_step``'s.  Returns (wall s,
+    per-shard kernel ms)."""
+    from kspider_tpu_torch.parallel import step
+
+    bits, wl, counts, block, n_pad, n_limbs = blocks
+    pad = -bits.shape[0] % n_shards
+    bits = np.concatenate([bits, np.zeros((pad,) + bits.shape[1:], np.uint8)])
+    wl = np.concatenate([wl, np.zeros((pad,) + wl.shape[1:], np.int8)])
+    reset_counts(cp)
+    sync_all()
+    t0 = time.perf_counter()
+    with launch_events(cp) as events:
+        shared, labels = step.sharded_step(devs, bits, wl, counts, CUTOFF, block,
+                                           n_pad, n_limbs)
+        sync_all()
+    wall = time.perf_counter() - t0
+    launches["sharded_step"] = read_counts(cp)
+    ms = event_ms(events)
+    print(f"[sharded step N={len(counts)}] sharded_step over {devs}: "
+          f"{bits.shape[0]} blocks, {wall:.3f} s (H2D included), kernel "
+          f"launches {launches['sharded_step']}, per-shard kernel ms "
+          f"{[round(t, 3) for t in ms]}", flush=True)
+    phase("sharded step launched every shard",
+          launches["sharded_step"]["upper"] == n_shards,
+          f"{launches['sharded_step']}")
+    phase("sharded step shared == single_device_step",
+          np.array_equal(shared.cpu().numpy(), step_shared))
+    phase("sharded step labels == single_device_step",
+          np.array_equal(labels.cpu().numpy(), step_labels))
+    return wall, ms
+
+
+def tiled_devices_phase(cli, cp, prefix, dense_tsv, devs, n_shards, launches):
+    """Phase 4i: the tiled engine over DEVS, pair-parallel (panel 2,048:
+    10 pairs) and with each pair's blocks split (panel 8,192: 1 pair);
+    returns the walls."""
+    walls = {}
+    for path, panel, layout in (
+            ("pair_parallel", "2048", "pair-parallel round-robin"),
+            ("sharded_pair", "8192", "color blocks of each pair split")):
+        reset_counts(cp)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            walls[path] = run_cli(cli, "pairwise", "-i", prefix, "--engine",
+                                  "tiled", "--panel", panel, "--device", devs)
+        sys.stdout.write(out.getvalue())
+        launches[path] = read_counts(cp)
+        print(f"[tiled over devices N=8192] --panel {panel} --device {devs}: "
+              f"stage {walls[path]:.3f} s, kernel launches {launches[path]}",
+              flush=True)
+        phase(f"tiled {path} TSV == dense TSV",
+              filecmp.cmp(prefix + "_kSpider_pairwise.tsv", dense_tsv,
+                          shallow=False))
+        phase(f"tiled --panel {panel} ran {layout}", layout in out.getvalue())
+    phase("tiled over devices launched both modes in every shard",
+          launches["pair_parallel"]["upper"] > 0
+          and launches["pair_parallel"]["all"] > 0
+          and launches["sharded_pair"]["upper"] >= n_shards,
+          f"{launches['pair_parallel']} / {launches['sharded_pair']}")
+    return walls
+
+
+#: worker of phase 4j: one process of a two-process run, on ``device``
+MP_WORKER = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from kspider_tpu_torch.ops import cuda_pairwise as cp
+from kspider_tpu_torch.parallel import multiprocess as mp
+
+mode, rank, nproc, port, prefix, npz, device = sys.argv[1:8]
+coord = f"localhost:{{port}}"
+if mode == "hashrange":
+    with np.load(npz) as data:  # each key read once: a read unzips it
+        names, bounds, hashes = (data[k] for k in ("names", "offsets", "hashes"))
+    arrays = [hashes[bounds[i]:bounds[i + 1]] for i in range(len(bounds) - 1)]
+    mp.distributed_pairwise_from_hash_sets(
+        names.tolist(), arrays, prefix, ksize=21, device=device,
+        coordinator=coord, num_processes=int(nproc), process_id=int(rank))
+    mp.shutdown()
+else:
+    from kspider_tpu_torch.cli.main import cli
+
+    args = ["pairwise", "-i", prefix, "--device", device, "--coordinator",
+            coord, "--num-processes", nproc, "--process-id", rank]
+    if mode == "tiled":
+        args += ["--engine", "tiled", "--panel", "2048"]
+    cli.main(args, standalone_mode=False)
+torch.cuda.synchronize(device)
+assert "jax" not in sys.modules, "the port imported jax"
+print("LAUNCHES " + json.dumps(dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)))
+print("WORKER_OK", rank, flush=True)
+"""
+MP_TIMEOUT = 300
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multiprocess_phase(prefix, dense_tsv, names, arrays, workdir, devices,
+                       launches):
+    """Phase 4j: two coordinated worker processes on ``devices`` (one each),
+    merging over gloo: the color-slice dense path and the
+    panel-row tiled path through the CLI, and the hash-range path from the
+    hash sets saved to an .npz.  Returns the walls and rank 0's merge line."""
+    script = os.path.join(workdir, "mp_worker.py")
+    with open(script, "w") as f:
+        f.write(MP_WORKER.format(repo=os.path.dirname(os.path.abspath(__file__))))
+    npz = os.path.join(workdir, "hash_sets.npz")
+    t0 = time.perf_counter()
+    bounds = np.zeros(len(arrays) + 1, dtype=np.int64)
+    np.cumsum([len(a) for a in arrays], out=bounds[1:])
+    # the smoke's hashes lie below 2**63, as a scaled sketch's lie below
+    # 2**64 / scale, so the u64 halves of my_hash_range would leave rank 1
+    # empty; an odd multiplier mod 2**64 is a bijection of the hash space,
+    # so it spreads the hashes over it and keeps every set overlap
+    np.savez(npz, names=np.array(names), offsets=bounds,
+             hashes=np.concatenate(arrays) * np.uint64(0x9E3779B97F4A7C15))
+    print(f"[multiprocess] saved {len(arrays)} hash sets ({bounds[-1]} hashes) "
+          f"to {os.path.basename(npz)}, {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    walls, merge_line = {}, ""
+    for path, mode, out_prefix in (
+            ("multiprocess_dense", "dense", prefix),
+            ("multiprocess_tiled", "tiled", prefix),
+            ("hashrange", "hashrange", os.path.join(workdir, "hashrange"))):
+        tsv = out_prefix + "_kSpider_pairwise.tsv"
+        if os.path.exists(tsv):
+            os.remove(tsv)
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, script, mode, str(r), "2", str(port), out_prefix,
+             npz, devices[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_TIMEOUT)[0].decode())
+        except subprocess.TimeoutExpired:
+            phase(f"{path}: workers finished within {MP_TIMEOUT} s", False)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        walls[path] = time.perf_counter() - t0
+        ranks = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                print(f"  [{path} rank {r}] {line}", flush=True)
+                if line.startswith("LAUNCHES "):
+                    ranks.append(json.loads(line[len("LAUNCHES "):]))
+                if r == 0 and line.startswith("merging "):
+                    merge_line = line
+            phase(f"{path}: worker {r} on {devices[r]} exited 0",
+                  p.returncode == 0 and f"WORKER_OK {r}" in out,
+                  f"rc={p.returncode}")
+        launches[path] = {key: sum(c[key] for c in ranks) for key in ranks[0]}
+        launches[path]["ranks"] = [c["total"] for c in ranks]
+        print(f"[multiprocess] {path}: 2 processes, wall {walls[path]:.3f} s "
+              f"(process start-up included), kernel launches {launches[path]}",
+              flush=True)
+        phase(f"{path}: every rank launched the kernel",
+              len(ranks) == 2 and all(c["total"] > 0 for c in ranks))
+        phase(f"{path} TSV == dense TSV",
+              filecmp.cmp(tsv, dense_tsv, shallow=False))
+        parts = glob.glob(os.path.join(workdir, "*.part"))
+        phase(f"{path}: no part files remain", not parts, f"{parts[:3]}")
+    os.remove(npz)
+    return walls, merge_line
 
 
 def bins_cli_phase(cli, names, arrays, workdir):
@@ -597,7 +844,9 @@ def main():
     del bf16_shared
 
     # ---- 4d. fused single-device step -----------------------------------
-    step_s, step_rounds = fused_step_phase(index, dense_shared, dev, cp, launches)
+    blocks = step_blocks(index)
+    step_s, step_rounds, step_shared, step_labels = fused_step_phase(
+        blocks, dense_shared, dev, cp, launches)
     del dense_shared
 
     # ---- 4e. the other engine names --------------------------------------
@@ -619,6 +868,23 @@ def main():
 
     # ---- 4f. index --device-build through the CLI on .bin files ----------
     cli_build = bins_cli_phase(cli, names, arrays, args.workdir)
+
+    # ---- 4g-4j. several devices and several processes --------------------
+    n_shards = max(2, count)
+    devs = ",".join(f"cuda:{i}" for i in range(n_shards)) if count >= 2 \
+        else "cuda:0,cuda:0"
+    print(f"[devices] DEVS={devs}: {n_shards} shards on {count} card(s); on one "
+          "card these phases measure overhead, not scaling", flush=True)
+    sharded_s, shard_ms = sharded_dense_phase(cli, cp, prefix, dense_tsv, devs,
+                                              n_shards, launches)
+    sharded_step_s, step_shard_ms = sharded_step_phase(
+        blocks, step_shared, step_labels, devs, n_shards, cp, launches)
+    del blocks, step_shared, step_labels
+    tiled_devs_s = tiled_devices_phase(cli, cp, prefix, dense_tsv, devs,
+                                       n_shards, launches)
+    mp_s, merge_line = multiprocess_phase(
+        prefix, dense_tsv, names, arrays, args.workdir,
+        [f"cuda:{r}" if count >= 2 else "cuda:0" for r in range(2)], launches)
     del index, names, arrays
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
@@ -711,6 +977,12 @@ def main():
           f"{cli_build[0]:.3f}/{cli_build[1]:.3f} s; N={n_big} build host "
           f"{build['host_s']:.3f} s, device {build['device_s']:.3f} s",
           flush=True)
+    print(f"[smoke] several devices ({devs}): sharded dense {sharded_s:.3f} s, "
+          f"sharded step {sharded_step_s:.3f} s, tiled "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in tiled_devs_s.items())
+          + "; two processes "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in mp_s.items())
+          + f"; rank 0: {merge_line or 'no merge line'}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "gram_int8_tiles",
         "route": "cuda",
@@ -732,6 +1004,8 @@ def main():
             "tiled_all": tiled_modes["all"][2],
             "dense_upper": main_plain_ms,
         },
+        "shard_ms": {"devices": devs, "sharded": shard_ms,
+                     "sharded_step": step_shard_ms},
     }, {
         "name": "gram_bf16_tiles",
         "route": "cuda",

@@ -19,6 +19,7 @@ from kspider_tpu.io import artifacts as artifacts_io
 from kspider_tpu.io import pairwise_tsv as pw_tsv
 from kspider_tpu.utils.logger import Logger
 from kspider_tpu_torch.ops import cc as cc_ops
+from kspider_tpu_torch.parallel.mesh import make_mesh
 
 DISTANCE_TO_COL = {
     "min_cont": 3,
@@ -115,11 +116,13 @@ def cluster_from_index(
     """Cluster from the panel-streamed engine's pairs, with no pairwise TSV;
     returns the output file path.
 
-    ``device`` runs the Gram kernel and the CC on a torch device; None runs
-    the engine's plain version on the CPU and scipy's CC.  The cutoff is
-    applied to the full-precision float32 containment, so a pair sitting
-    exactly on a %g rounding boundary of the TSV may classify differently
-    from :func:`cluster_index`.  ``ani`` needs the ani column file and is
+    ``device`` runs the Gram kernel and the CC on a torch device; a device
+    list (``parallel/mesh.make_mesh``) runs the Gram kernel over the list
+    (see ``ops/tiled_pairwise.iter_panel_pairs``) and the CC on its first
+    device; None runs the engine's plain version on the CPU and scipy's
+    CC.  The cutoff is applied to the full-precision float32 containment,
+    so a pair sitting exactly on a %g rounding boundary of the TSV may
+    classify differently from :func:`cluster_index`.  ``ani`` needs the ani column file and is
     refused."""
     from kspider_tpu_torch.core import pairwise as core_pw
     from kspider_tpu_torch.ops import tiled_pairwise as tp
@@ -132,10 +135,11 @@ def cluster_from_index(
         log.ERROR("unknown distance!")
         raise ValueError("unknown distance")
 
+    devices = make_mesh("cpu" if device is None else device)
     cutoff_percent = float(cutoff) * 100.0
     n = index.num_groups
     counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
-    cc_fn = _cc_fn(device)
+    cc_fn = _cc_fn(None if device is None else devices[0])
     plan = tp.build_panel_plan(
         index.color_offsets, index.color_members, index.color_counts,
         n, panel,
@@ -158,8 +162,7 @@ def cluster_from_index(
 
     log.INFO("Clustering from the panel-streamed engine (no TSV)...")
     for _, _, gi, gj, vals in tp.iter_panel_pairs(
-        plan, device="cpu" if device is None else device, block=block,
-        min_shared=min_shared,
+        plan, device=devices, block=block, min_shared=min_shared,
     ):
         cmin, cavg, cmax = core_pw.containment_columns(
             vals, counts[gi], counts[gj]

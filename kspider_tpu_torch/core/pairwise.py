@@ -156,8 +156,9 @@ def compute_shared_matrix(
     """S[i, j] = number of k-mer hashes shared by groups i and j (int64).
 
     ``device=None`` runs the numpy host reference (the CLI's ``--cpu``)
-    whatever the engine, as kspider_tpu does; otherwise ``engine`` picks
-    the dense or the scatter engine (``ops.pairwise.ENGINES``)."""
+    whatever the engine, as kspider_tpu does; otherwise ``device`` is one
+    device or a device list and ``engine`` picks the dense, sharded or
+    scatter engine (``ops.pairwise.shared_kmer_matrix``)."""
     args = (index.color_offsets, index.color_members, index.color_counts,
             index.num_groups)
     if device is None:
@@ -178,13 +179,14 @@ def run_pairwise(
 ) -> Optional[np.ndarray]:
     """Full pairwise stage: load artifacts if needed, compute, emit TSVs.
 
-    ``device`` is a torch device for the Gram kernel, or None for the numpy
-    host engine.  ``engine="tiled"``, or ``"auto"`` with a device and more
-    than ``AUTO_TILED_THRESHOLD`` samples, takes the panel-streamed engine
-    (on the CPU when ``device`` is None) with ``panel``-wide panels and
-    ``device_pack`` (see ``ops.bitmask.device_pack_policy``), and returns
+    ``device`` is a torch device for the Gram kernel, a device list
+    (``parallel/mesh.make_mesh``) whose devices share the work, or None for
+    the numpy host engine.  ``engine="tiled"``, or ``"auto"`` with a device
+    and more than ``AUTO_TILED_THRESHOLD`` samples, takes the panel-streamed
+    engine (on the CPU when ``device`` is None) with ``panel``-wide panels
+    and ``device_pack`` (see ``ops.bitmask.device_pack_policy``), and returns
     None: the pairs then live only in the TSV.  Otherwise ``engine``
-    ("auto", "bitmask", "pallas" or "scatter", see
+    ("auto", "bitmask", "pallas", "scatter" or "sharded", see
     :func:`compute_shared_matrix`) computes the dense shared matrix, which
     is returned."""
     t0 = time.perf_counter()

@@ -4,7 +4,8 @@ import torch
 
 
 def resolve_device(name) -> torch.device:
-    """``torch.device(name)``; raises when CUDA is asked for and absent.
+    """``torch.device(name)``; raises when CUDA is asked for and absent, or
+    when a CUDA index names a card the machine does not have.
 
     There is no fallback: a run that asked for the card and found none
     fails instead of quietly running on the CPU."""
@@ -13,5 +14,11 @@ def resolve_device(name) -> torch.device:
         raise RuntimeError(
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False (no CUDA card or a CPU-only PyTorch build)"
+        )
+    if device.type == "cuda" and device.index is not None \
+            and device.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but only "
+            f"{torch.cuda.device_count()} CUDA card(s) are visible"
         )
     return device

@@ -10,12 +10,14 @@ Exactness: one limb term adds at most 127 per color, so fewer than
 ``2**31 / 127`` colors per accumulation keep int32 exact; callers split
 larger inputs into super-blocks.
 
-Two engines: the dense engine on the hand-written Gram kernel
-(``ops/cuda_pairwise.py``; JAX's "bitmask" and "pallas" engines), and the
-scatter engine (postings scattered into a dense int8 block, then one
-product per limb).  JAX leaves the scatter engine's product to XLA outside
-any Pallas kernel, so here it is a library GEMM: ``torch._int_mm`` (int8 ->
-int32) on the card, float64 (exact) on the CPU.
+Three engines: the dense engine on the hand-written Gram kernel
+(``ops/cuda_pairwise.py``; JAX's "bitmask" and "pallas" engines), the
+sharded engine, which splits the color blocks of the dense engine over a
+device list (``parallel/sharded_pairwise.py``), and the scatter engine
+(postings scattered into a dense int8 block, then one product per limb).
+JAX leaves the scatter engine's product to XLA outside any Pallas kernel,
+so here it is a library GEMM: ``torch._int_mm`` (int8 -> int32) on the
+card, float64 (exact) on the CPU.
 """
 
 from typing import Optional, Tuple
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from kspider_tpu_torch.device import resolve_device
+from kspider_tpu_torch.parallel.mesh import make_mesh
 
 # int32 accumulator safety bound: 127 * MAX_COLORS_PER_CALL < 2**31
 _MAX_COLORS_PER_CALL = (2**31 - 1) // 127
@@ -39,7 +42,9 @@ def _round_up(a: int, b: int) -> int:
 
 #: engines of :func:`shared_kmer_matrix`; bitmask and pallas are both the
 #: dense engine on the Gram kernel
-ENGINES = ("auto", "bitmask", "pallas", "scatter")
+ENGINES = ("auto", "bitmask", "pallas", "scatter", "sharded")
+#: the engines that run on exactly one device
+ONE_DEVICE_ENGINES = ("bitmask", "pallas", "scatter")
 #: default color block per engine (kspider_tpu's: 1024 for its bitmask and
 #: Pallas engines, the pairwise stage's 512 for the scatter engine)
 DENSE_BLOCK = 1024
@@ -186,6 +191,18 @@ def shared_kmer_matrix_scatter(
     return s.cpu().numpy()
 
 
+def check_engine_devices(engine: str, n_devices: int) -> None:
+    """Raise when ``engine`` cannot run on ``n_devices`` devices: an engine
+    of ``ONE_DEVICE_ENGINES`` never quietly takes the first of several."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}")
+    if n_devices > 1 and engine in ONE_DEVICE_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} runs on one device, got {n_devices}; use "
+            "engine 'auto' or 'sharded' for a device list"
+        )
+
+
 def shared_kmer_matrix(
     offsets: np.ndarray,
     members: np.ndarray,
@@ -201,24 +218,37 @@ def shared_kmer_matrix(
 
     Input is the color-class CSR of :class:`kspider_tpu.core.index.ColorIndex`:
     ``members[offsets[c]:offsets[c+1]]`` lists the 0-based sample ids of
-    color ``c`` and ``weights[c]`` its k-mer count.  ``engine`` (one of
-    ``ENGINES``): "auto", "bitmask" and "pallas" run the Gram product on
+    color ``c`` and ``weights[c]`` its k-mer count.  ``device`` is one
+    device or a device list (``parallel/mesh.make_mesh``).  ``engine`` (one
+    of ``ENGINES``): "auto" runs the sharded engine on a list of more than
+    one device, as kspider_tpu does on more than one chip, and otherwise
+    the dense engine; "bitmask" and "pallas" run the dense engine on
     ``device`` (the hand-written kernel on a CUDA device, its plain torch
-    version on the CPU) with ``DENSE_BLOCK``-color blocks; "scatter" runs
-    the scatter engine with ``SCATTER_BLOCK``.  ``block`` overrides the
-    engine's default."""
+    version on the CPU) with ``DENSE_BLOCK``-color blocks; "sharded" splits
+    those blocks over the devices; "scatter" runs the scatter engine with
+    ``SCATTER_BLOCK``.  ``block`` overrides the engine's default.  The
+    sharded engine always drops singletons, as kspider_tpu's does."""
+    devices = make_mesh(device)
+    check_engine_devices(engine, len(devices))
+    if engine == "sharded" or (engine == "auto" and len(devices) > 1):
+        from kspider_tpu_torch.parallel.sharded_pairwise import (
+            shared_kmer_matrix_sharded,
+        )
+
+        return shared_kmer_matrix_sharded(
+            offsets, members, weights, n, devices=devices,
+            block=block or DENSE_BLOCK,
+        )
     if engine == "scatter":
         return shared_kmer_matrix_scatter(
-            offsets, members, weights, n, device=device,
+            offsets, members, weights, n, device=devices[0],
             block=block or SCATTER_BLOCK, drop_singletons=drop_singletons,
         )
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}")
     from kspider_tpu_torch.ops.cuda_pairwise import shared_kmer_matrix_cuda
 
     return shared_kmer_matrix_cuda(
-        offsets, members, weights, n, device=device, block=block or DENSE_BLOCK,
-        drop_singletons=drop_singletons,
+        offsets, members, weights, n, device=devices[0],
+        block=block or DENSE_BLOCK, drop_singletons=drop_singletons,
     )
 
 

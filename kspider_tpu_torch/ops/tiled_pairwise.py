@@ -22,10 +22,20 @@ Exactness: every chunk of at most ``_MAX_COLORS_PER_CALL`` colors keeps
 each limb's int32 sum exact, and chunks add up in int64, so one extract
 serves every weight range.
 
+Several devices (a device list, ``parallel/mesh.make_mesh``), by JAX's
+rule: with at least two pairs per device and the side cache off, whole
+pairs go round-robin to the devices (pair-parallel, no reduction);
+otherwise each pair's color blocks are split over the devices and the
+partial tiles summed on the first (per-pair sharding).  Extraction stays in
+plan order either way, so the TSV bytes do not change.  Panel rows
+partition the stream (:func:`filter_plan_rows`), which is how the
+multi-process runs of ``parallel/multiprocess.py`` split it.
+
 Threads: one worker packs pair p + 1 on the host (numpy and the native
-OpenMP packer) while the calling thread places sides on the device, looks
-up the side cache, launches and extracts; all device work is issued from
-the calling thread, so it is ordered on one stream.
+OpenMP packer) while the calling thread places sides on the devices, looks
+up the side cache, launches and extracts; all device work, and so every
+update of the launch counters in ``ops/cuda_pairwise.py``, is issued from
+the calling thread.
 """
 
 import hashlib
@@ -39,12 +49,13 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from kspider_tpu_torch.device import resolve_device
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
+from kspider_tpu_torch.parallel.mesh import make_mesh
 
-#: panel pairs dispatched ahead of the one being extracted
+#: panel pairs dispatched ahead of the one being extracted, on one device
+#: or with per-pair sharding; pair-parallel runs keep max(2, devices)
 INFLIGHT = 4
 
 
@@ -222,6 +233,48 @@ def build_panel_plan(
         ent_segb=sb_s.astype(np.int64),
         max_weight_sum=int(kept_w.sum()),
         src_shape=(int(n), len(offsets), len(members)),
+    )
+
+
+def panel_row_work(plan: PanelPlan) -> np.ndarray:
+    """Per-panel-row pair-entry counts: the load estimate by which whole
+    panel rows are assigned to processes (parallel/multiprocess.py)."""
+    lengths = np.diff(plan.pair_off)
+    pis = plan.pair_keys // plan.n_panels
+    work = np.zeros(plan.n_panels, dtype=np.int64)
+    np.add.at(work, pis.astype(np.int64), lengths)
+    return work
+
+
+def filter_plan_rows(plan: PanelPlan, rows) -> PanelPlan:
+    """Restrict a plan to the panel pairs whose row panel is in ``rows``.
+
+    Shares the posting and segment arrays with the parent plan; only the
+    pair CSR is rebuilt.  A sample pair (gi, gj) with gi < gj comes from
+    exactly one panel pair, (gi // panel, gj // panel), so panel rows
+    partition the streamed output into disjoint, contiguous blocks of the
+    global (gi, gj) order: rows computed by different processes,
+    concatenated in row order, give the single-process stream."""
+    rows = np.asarray(sorted({int(r) for r in np.asarray(rows).ravel()}))
+    pis = plan.pair_keys // plan.n_panels
+    keep = np.flatnonzero(np.isin(pis, rows))
+    lengths = np.diff(plan.pair_off)
+    new_off = np.zeros(len(keep) + 1, dtype=np.int64)
+    np.cumsum(lengths[keep], out=new_off[1:])
+    ent_idx = np.repeat(plan.pair_off[keep], lengths[keep]) + (
+        np.arange(int(new_off[-1])) - np.repeat(new_off[:-1], lengths[keep])
+    )
+    return PanelPlan(
+        n=plan.n, panel=plan.panel, n_panels=plan.n_panels,
+        mem_s=plan.mem_s,
+        seg_start=plan.seg_start, seg_count=plan.seg_count,
+        seg_color=plan.seg_color, w_limbs=plan.w_limbs,
+        pair_keys=plan.pair_keys[keep],
+        pair_off=new_off,
+        ent_sega=plan.ent_sega[ent_idx],
+        ent_segb=plan.ent_segb[ent_idx],
+        max_weight_sum=plan.max_weight_sum,
+        src_shape=plan.src_shape,
     )
 
 
@@ -413,6 +466,26 @@ def _chunk_acc(bits_a, bits_b, wl, diag: bool, panel_pad: int):
                                  out=acc)
 
 
+def _chunk_acc_sharded(bits_a, bits_b, wl, diag: bool, panel_pad: int,
+                       devices):
+    """One chunk's accumulators with its color blocks split evenly over
+    ``devices`` (block count a multiple of their number): each device runs
+    :func:`_chunk_acc` on its slice, every launch is issued before any
+    partial is copied, and the partials are summed on ``bits_a``'s device.
+    The counterpart of JAX's ``_gram_rect_sharded``."""
+    per = bits_a.shape[0] // len(devices)
+    accs = []
+    for k, dev in enumerate(devices):
+        rows = slice(k * per, (k + 1) * per)
+        a = bits_a[rows].to(dev)
+        b = a if bits_b is bits_a else bits_b[rows].to(dev)
+        accs.append(_chunk_acc(a, b, wl[rows].to(dev), diag, panel_pad))
+    acc = accs[0].to(bits_a.device)
+    for other in accs[1:]:
+        acc += other.to(acc.device)
+    return acc
+
+
 def iter_panel_pairs(
     plan: PanelPlan,
     *,
@@ -428,13 +501,21 @@ def iter_panel_pairs(
 
     ``gi``/``gj`` are global 0-based int64 sample ids with gi < gj, in
     row-major order within the pair; ``shared`` the exact int64 counts
-    >= max(1, min_shared).  The Gram product runs on ``device``.
-    ``cache_bytes`` bounds the device side cache (0: off).
+    >= max(1, min_shared).  The Gram product runs on ``device``, one
+    device or a device list: with at least two pairs per device and the
+    side cache off, pair p runs on ``devices[p % len(devices)]``; otherwise
+    each pair's color blocks are split over the devices and the partial
+    tiles summed on ``devices[0]``.  ``cache_bytes`` bounds the device side
+    cache (0: off; its entries live on ``devices[0]``).
     ``device_pack`` (auto/force/off; None reads ``KSPIDER_DEVICE_PACK``)
     ships sparse single-use sides as posting keys packed on the device.
     Pass a dict as ``stats`` for per-stage times, payload and cache
-    counters."""
-    device = resolve_device(device)
+    counters and the device layout (``devices``, ``pair_parallel``)."""
+    devices = make_mesh(device)
+    n_pairs = len(plan.pair_keys)
+    pair_parallel = (len(devices) > 1 and n_pairs >= 2 * len(devices)
+                     and cache_bytes <= 0)
+    shards = 1 if pair_parallel else len(devices)
     n_limbs = plan.n_limbs
     panel_pad = max(cp.TILE, _cdiv(plan.panel, cp.TILE) * cp.TILE)
     sup = pw._MAX_COLORS_PER_CALL - (pw._MAX_COLORS_PER_CALL % block)
@@ -503,7 +584,7 @@ def iter_panel_pairs(
         chunks = []
         for cs in range(0, e1 - e0, sup):
             ce = min(cs + sup, e1 - e0)
-            n_blocks = _cdiv(ce - cs, block)
+            n_blocks = pw._round_up(_cdiv(ce - cs, block), shards)
             side_a = _side(pi, segs_a[cs:ce], n_blocks, cacheable)
             side_b = side_a if pi == pj else _side(
                 pj, segs_b[cs:ce], n_blocks, cacheable)
@@ -518,8 +599,8 @@ def iter_panel_pairs(
 
     # ---- dispatch thread: every device operation -------------------------
 
-    def _to_device(side):
-        """Place a prepared side (or limbs) on the device; counts the
+    def _to_device(side, device):
+        """Place a prepared side (or limbs) on ``device``; counts the
         sides that cross H2D as posting keys or packed u8 bits (i8 limbs
         are not counted)."""
         if isinstance(side, _PostingsSide):
@@ -555,14 +636,20 @@ def iter_panel_pairs(
             xfer["bits_bytes"] += side.nbytes
         return torch.from_numpy(side).to(device)
 
-    def dispatch(pi: int, pj: int, chunks):
-        """Launch every chunk; returns (int64 tile, keep mask) on device."""
+    def dispatch(pi: int, pj: int, chunks, device):
+        """Launch every chunk; returns (int64 tile, keep mask) on
+        ``device``."""
         diag = pi == pj
         total = None
         for side_a, side_b, wl in chunks:
-            bits_a = _to_device(side_a)
-            bits_b = bits_a if side_b is side_a else _to_device(side_b)
-            acc = _chunk_acc(bits_a, bits_b, _to_device(wl), diag, panel_pad)
+            bits_a = _to_device(side_a, device)
+            bits_b = bits_a if side_b is side_a else _to_device(side_b, device)
+            wl = _to_device(wl, device)
+            if shards > 1:
+                acc = _chunk_acc_sharded(bits_a, bits_b, wl, diag, panel_pad,
+                                         devices)
+            else:
+                acc = _chunk_acc(bits_a, bits_b, wl, diag, panel_pad)
             if total is None:
                 total = torch.zeros((panel_pad, panel_pad), dtype=torch.int64,
                                     device=device)
@@ -585,7 +672,7 @@ def iter_panel_pairs(
         return gi, gj, vals
 
     t_pack = t_dispatch = t_extract = 0.0
-    n_pairs = len(plan.pair_keys)
+    inflight = max(2, len(devices)) if pair_parallel else INFLIGHT
     pending = deque()  # (pi, pj, handle), oldest first
     ex = ThreadPoolExecutor(max_workers=1)
     try:
@@ -596,10 +683,11 @@ def iter_panel_pairs(
             if p + 1 < n_pairs:
                 fut = ex.submit(timed_prepare, p + 1)
             t0 = time.perf_counter()
-            pending.append((pi, pj, dispatch(pi, pj, chunks)))
+            device = devices[p % len(devices)] if pair_parallel else devices[0]
+            pending.append((pi, pj, dispatch(pi, pj, chunks, device)))
             del chunks
             t_dispatch += time.perf_counter() - t0
-            while len(pending) > INFLIGHT or (p + 1 == n_pairs and pending):
+            while len(pending) > inflight or (p + 1 == n_pairs and pending):
                 t0 = time.perf_counter()
                 done = pending.popleft()
                 out = extract(*done)
@@ -613,6 +701,7 @@ def iter_panel_pairs(
             cache_hits=cache.hits, cache_misses=cache.misses,
             cache_bytes=cache.nbytes,
             t_pack=t_pack, t_dispatch=t_dispatch, t_extract=t_extract,
+            devices=len(devices), pair_parallel=pair_parallel,
             **xfer,
         )
 
@@ -636,15 +725,18 @@ def stream_pairwise_tsv(
     Rows come out sorted by (source_1, source_2), byte-identical to the
     dense writer.  Returns the pair-row count.  ``plan`` reuses a prebuilt
     :func:`build_panel_plan` result; its panel and source shape must match.
-    ``cache_bytes=None`` gives a 2 GB device side cache on a CUDA device
-    and none on the CPU; pass 0 to force it off, or a byte budget.  Pass a
+    ``device`` is one device or a device list (see :func:`iter_panel_pairs`).
+    ``cache_bytes=None`` gives a 2 GB device side cache on one CUDA device
+    and none on the CPU or on a device list, as kspider_tpu keeps it off on
+    several devices; pass 0 to force it off, or a byte budget.  Pass a
     dict as ``stats`` (or set ``echo_progress``) for the stage breakdown:
     pack (host, overlapped), dispatch, extract (device wait + D2H), tsv."""
     from kspider_tpu_torch.core.pairwise import write_pairwise_rows_coo
 
-    device = resolve_device(device)
+    devices = make_mesh(device)
     if cache_bytes is None:
-        cache_bytes = 2 << 30 if device.type == "cuda" else 0
+        cache_bytes = 2 << 30 if (
+            len(devices) == 1 and devices[0].type == "cuda") else 0
 
     if plan is None:
         plan = build_panel_plan(
@@ -699,7 +791,7 @@ def stream_pairwise_tsv(
         t_tsv += time.perf_counter() - t0
 
     for pi, pj, gi, gj, vals in iter_panel_pairs(
-        plan, device=device, block=block, min_shared=min_shared,
+        plan, device=devices, block=block, min_shared=min_shared,
         cache_bytes=cache_bytes, stats=run_stats, device_pack=device_pack,
     ):
         if pi != current_row:
@@ -733,6 +825,11 @@ def stream_pairwise_tsv(
             f"({run_stats['keys_bytes'] / 1e6:.1f}MB posting keys)",
             flush=True,
         )
+        if len(devices) > 1:
+            layout = ("pair-parallel round-robin" if run_stats["pair_parallel"]
+                      else "color blocks of each pair split")
+            print(f"  devices: {', '.join(map(str, devices))} ({layout})",
+                  flush=True)
         if cache_bytes:
             print(
                 f"  device side-cache: {run_stats['cache_hits']} hits / "

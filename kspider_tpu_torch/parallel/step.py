@@ -1,15 +1,17 @@
-"""The fused single-device step: packed colors -> shared-k-mer matrix ->
-max-containment -> threshold adjacency -> connected-components labels, all
-on one device.
+"""The fused step: packed colors -> shared-k-mer matrix -> max-containment
+-> threshold adjacency -> connected-components labels, on one device or on
+a device list.
 
 Counterpart of ``kspider_tpu/parallel/step.py`` (``single_device_step``,
-``_combine_and_cluster`` and ``make_example_blocks``; ``sharded_step``
-waits for the multi-GPU port).  The step keeps JAX's non-transposed input
-layout, ``bits u8[NB, block, n_pad/8]`` and ``w_limbs i8[NB, block, L]``.
-On the device the inputs are transposed to the Gram kernel's colors-last
-layout and padded with zero colors to a multiple of its chunk; the kernel
-computes the upper tiles, which are mirrored.  On the CPU the same calls
-take the kernel's plain version.
+``sharded_step``, ``_combine_and_cluster`` and ``make_example_blocks``).
+The step keeps JAX's non-transposed input layout, ``bits u8[NB, block,
+n_pad/8]`` and ``w_limbs i8[NB, block, L]``.  The Gram product is
+``parallel/sharded_pairwise.sharded_cooccurrence``: each device transposes
+its slice of the blocks to the Gram kernel's colors-last layout, pads it
+with zero colors to a multiple of the kernel's chunk and runs the upper
+tiles; the partials are summed on the first device and mirrored, and the
+rest of the step runs there.  On the CPU the same calls take the kernel's
+plain version.
 
 Integer exactness: the limbs are combined in int32 on the device, as JAX
 does (exact while every shared count is below 2**31).
@@ -19,13 +21,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from kspider_tpu_torch.device import resolve_device
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cc as cc_ops
-from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
+from kspider_tpu_torch.parallel.mesh import make_mesh
+from kspider_tpu_torch.parallel.sharded_pairwise import sharded_cooccurrence
 
 
 def _combine_and_cluster(acc, kmer_counts, cutoff, n_limbs,
@@ -59,30 +61,21 @@ def single_device_step(bits, w_limbs, kmer_counts, cutoff, block: int,
     ``bits u8[NB, block, n_pad/8]``, ``w_limbs i8[NB, block, L]`` and
     ``kmer_counts`` (numpy arrays or tensors) as in kspider_tpu.  ``stats``,
     if given, receives the CC ``rounds``."""
-    device = resolve_device(device)
-    bits = torch.as_tensor(bits, device=device)
-    w_limbs = torch.as_tensor(w_limbs, device=device)
-    counts = torch.as_tensor(kmer_counts, device=device)
-    nb = bits.shape[0]
-    if tuple(bits.shape) != (nb, block, n_pad // 8) or n_pad % cp.TILE:
-        raise ValueError(f"bits {tuple(bits.shape)} != ({nb}, {block}, "
-                         f"{n_pad // 8}) with n_pad a multiple of {cp.TILE}")
-    if tuple(w_limbs.shape) != (nb, block, n_limbs):
-        raise ValueError(f"w_limbs {tuple(w_limbs.shape)} != ({nb}, {block}, "
-                         f"{n_limbs})")
-    if nb * block > pw._MAX_COLORS_PER_CALL:
-        raise ValueError(f"{nb * block} colors: the int32 limb accumulators "
-                         f"are exact only up to {pw._MAX_COLORS_PER_CALL}")
-    pad = -block % cp.CHUNK
-    bits_t = F.pad(bits.transpose(1, 2), (0, pad)).contiguous()
-    wl_t = F.pad(w_limbs.transpose(1, 2), (0, pad)).contiguous()
-    del bits, w_limbs
-    acc = torch.zeros((n_limbs, n_pad, n_pad), dtype=torch.int32, device=device)
-    cp.cooccurrence_tiles(bits_t, bits_t, wl_t,
-                          *cp.upper_triangle_tiles(n_pad // cp.TILE),
-                          tile=cp.TILE, out=acc)
-    del bits_t, wl_t
-    acc = cp.mirror_upper_tiles(acc, cp.TILE)
+    return sharded_step([resolve_device(device)], bits, w_limbs, kmer_counts,
+                        cutoff, block, n_pad, n_limbs, stats=stats)
+
+
+def sharded_step(devices, bits, w_limbs, kmer_counts, cutoff, block: int,
+                 n_pad: int, n_limbs: int, *, stats: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused step over ``devices`` (a list or comma-separated names,
+    see ``parallel/mesh.make_mesh``): the color blocks split over the
+    devices, NB a multiple of their count, the partial Gram matrices summed
+    on ``devices[0]``, where the limbs are combined and clustered.  Returns
+    ``(shared i32 [n, n], labels i32 [n])`` on ``devices[0]``."""
+    devices = make_mesh(devices)
+    acc = sharded_cooccurrence(bits, w_limbs, block, n_pad, n_limbs, devices)
+    counts = torch.as_tensor(kmer_counts, device=devices[0])
     return _combine_and_cluster(acc, counts, cutoff, n_limbs, stats)
 
 

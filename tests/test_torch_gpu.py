@@ -275,3 +275,64 @@ def test_scatter_engine_on_card(cuda_device, block):
     got = tpw.shared_kmer_matrix(o, m, w, 700, device=cuda_device,
                                  engine="scatter", block=block)
     assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, 700))
+
+
+def two_shards():
+    """Two shards on one card, or one on each of the first two cards."""
+    if torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return [torch.device("cuda", 0)] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 1024])
+def test_sharded_matrix_on_card_equals_single_device(cuda_device, block):
+    from kspider_tpu_torch.parallel import sharded_pairwise as sp
+
+    rng = np.random.default_rng(31)
+    o, m, w = random_csr(rng, 3000, 700, 12, 40000)
+    before = cp.LAUNCHES
+    got = sp.shared_kmer_matrix_sharded(o, m, w, 700,
+                                        devices=two_shards(),
+                                        block=block)
+    assert cp.LAUNCHES == before + 2  # one launch per shard
+    want = tpw.shared_kmer_matrix(o, m, w, 700, device=cuda_device, block=block)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, 700))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,cutoff", [(32, 0.01), (256, 0.3)])
+def test_sharded_step_on_card_equals_single_device(cuda_device, block, cutoff):
+    from kspider_tpu_torch.parallel import step
+
+    bits, wl, counts, block, n_pad, n_limbs = step.make_example_blocks(
+        n_samples=300, n_colors=2048, block=block, seed=block)
+    devices = two_shards()
+    before = cp.LAUNCHES
+    shared, labels = step.sharded_step(devices, bits, wl, counts, cutoff, block,
+                                       n_pad, n_limbs)
+    assert cp.LAUNCHES == before + 2
+    assert shared.device == devices[0] and labels.device == devices[0]
+    one_s, one_l = step.single_device_step(bits, wl, counts, cutoff, block,
+                                           n_pad, n_limbs, device=cuda_device)
+    assert torch.equal(shared.cpu(), one_s.cpu())
+    assert torch.equal(labels.cpu(), one_l.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("panel,pair_parallel", [(128, True), (512, False)])
+def test_iter_panel_pairs_two_devices_equals_one(cuda_device, panel,
+                                                 pair_parallel):
+    rng = np.random.default_rng(37)
+    o, m, w = random_csr(rng, 3000, 700, 12, 40000)
+    plan = ttp.build_panel_plan(o, m, w, 700, panel)
+    want = list(ttp.iter_panel_pairs(plan, device=cuda_device, block=BLOCK))
+    stats = {}
+    got = list(ttp.iter_panel_pairs(plan, device=two_shards(),
+                                    block=BLOCK, stats=stats))
+    assert stats["pair_parallel"] == pair_parallel
+    assert [(g[0], g[1]) for g in got] == [(x[0], x[1]) for x in want]
+    for x, g in zip(want, got):
+        for a, b in zip(x[2:], g[2:]):
+            assert np.array_equal(a, b)

@@ -12,6 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import os, sys
 import numpy as np
+import torch
 import kspider_tpu_torch
 from kspider_tpu_torch.cli.main import cli  # registers every command
 from kspider_tpu.core.index import build_index_from_hash_sets
@@ -67,6 +68,19 @@ bits, wl, counts, block, n_pad, n_limbs = step.make_example_blocks(
 shared, labels = step.single_device_step(bits, wl, counts, 0.01, block, n_pad,
                                          n_limbs, device="cpu")
 assert shared.shape == (64, 64) and labels.shape == (64,)
+# the multi-device and multi-process modules: two shards on the CPU
+from kspider_tpu_torch.parallel import distributed, mesh, multiprocess, sharded_pairwise
+sharded_s, sharded_l = step.sharded_step(["cpu", "cpu"], bits, wl, counts, 0.01,
+                                         block, n_pad, n_limbs)
+assert torch.equal(sharded_s, shared) and torch.equal(sharded_l, labels)
+from kspider_tpu_torch.ops import pairwise as pw
+m = sharded_pairwise.shared_kmer_matrix_sharded(
+    index.color_offsets, index.color_members, index.color_counts,
+    index.num_groups, devices=mesh.make_mesh("cpu,cpu"), block=32)
+assert np.array_equal(m, pw.shared_kmer_matrix_numpy(
+    index.color_offsets, index.color_members, index.color_counts,
+    index.num_groups))
+assert multiprocess.initialize() == distributed.process_info() == (0, 1)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")

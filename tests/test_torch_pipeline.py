@@ -150,15 +150,64 @@ def test_cpu_above_threshold_matches_jax(jax_run, monkeypatch, tmp_path,
                            shallow=False), suffix
 
 
-@pytest.mark.parametrize("args", [
-    ["pairwise", "--num-processes", "2"],
-    ["pairwise", "--coordinator", "localhost:1234"],
+@pytest.mark.parametrize("args,refusal", [
+    (["pairwise", "--num-processes", "2"], "needs --coordinator"),
+    (["pairwise", "--num-processes", "2", "--coordinator", "localhost:1"],
+     "needs --coordinator"),
+    (["pairwise", "--num-processes", "2", "--coordinator", "localhost:1",
+      "--process-id", "0", "--device", "cpu,cpu"], "one device per process"),
+    (["pairwise", "--engine", "scatter", "--device", "cpu,cpu"],
+     "runs on one device"),
+    (["index", "--dir", ".", "--device-build", "--device", "cpu,cpu"],
+     "takes one device"),
+    (["pairwise", "--coordinator", "localhost:1234"], None),
 ])
-def test_unported_options_are_refused(jax_run, args):
-    port_prefix, _ = jax_run
-    result = invoke(*args, "-i", port_prefix, "--device", "cpu")
+def test_unported_options_are_refused(jax_run, args, refusal, tmp_path):
+    """Multi-process flags without what they need, and one-device engines
+    or commands given a device list, exit 1 with a message before any work.
+    ``--coordinator`` with one process runs single-process, as in
+    kspider_tpu (the port refused it before it had multi-process runs)."""
+    port_prefix, jax_prefix = jax_run
+    prefix = str(tmp_path / "sigs")
+    copy_index(port_prefix, prefix)
+    if "--device" not in args:
+        args = [*args, "--device", "cpu"]
+    if args[0] == "pairwise":
+        args = [*args, "-i", prefix]
+    result = invoke(*args)
+    if refusal is None:
+        assert result.exit_code == 0, result.output
+        for suffix in OUTPUTS[:2]:
+            assert filecmp.cmp(prefix + suffix, jax_prefix + suffix,
+                               shallow=False), suffix
+        return
     assert result.exit_code == 1
-    assert "not ported to kspider_tpu_torch yet" in result.output
+    assert refusal in result.output
+    assert not os.path.exists(prefix + OUTPUTS[1])
+
+
+@pytest.mark.parametrize("args,outputs,tiled", [
+    (["pairwise", "--device", "cpu,cpu"], OUTPUTS[:2], False),
+    (["pairwise", "--device", "cpu,cpu,cpu", "--engine", "tiled", "--panel",
+      "8"], OUTPUTS[:2], True),
+    (["cluster", "--from-index", "-c", str(CUTOFF), "--panel", "8",
+      "--device", "cpu,cpu"], OUTPUTS[2:], True),
+    (["cluster", "-c", str(CUTOFF), "--device", "cpu,cpu"], OUTPUTS[2:], False),
+])
+def test_device_list_cli_byte_identical(jax_run, jax_tiled_run, args, outputs,
+                                        tiled, tmp_path):
+    """``--device cpu,cpu``: the dense engine shards its color blocks, the
+    tiled engine its panel pairs; the bytes are kspider_tpu's."""
+    port_prefix, jax_prefix = jax_run
+    prefix = str(tmp_path / "sigs")
+    copy_index(port_prefix, prefix)
+    if args[0] == "cluster" and not tiled:
+        shutil.copy(jax_prefix + OUTPUTS[1], prefix + OUTPUTS[1])
+    result = invoke(*args, "-i", prefix)
+    assert result.exit_code == 0, result.output
+    want = jax_tiled_run if tiled else jax_prefix
+    for suffix in outputs:
+        assert filecmp.cmp(prefix + suffix, want + suffix, shallow=False), suffix
 
 
 @pytest.fixture(scope="module")

@@ -123,3 +123,40 @@ def test_step_on_cuda_without_card_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         tstep.single_device_step(bits, wl, counts, 0.1, block, n_pad, n_limbs,
                                  device="cuda")
+
+
+@pytest.mark.parametrize("kwargs,cutoff,n_dev", [
+    (dict(n_samples=64, n_colors=512, block=8, seed=5), 0.02, 8),
+    (dict(n_samples=256, n_colors=2048, block=256), 0.3, 4),
+    (dict(n_samples=300, n_colors=900, block=128, seed=1, max_weight=40000), 0.05, 2),
+])
+def test_sharded_step_matches_jax_and_single(kwargs, cutoff, n_dev):
+    """kspider_tpu's ``sharded_step`` on its virtual CPU mesh, the port's on
+    a list of CPU devices and the port's ``single_device_step``: equal
+    ``shared`` and ``labels``."""
+    from kspider_tpu.parallel import mesh as jmesh
+
+    bits, wl, counts, block, n_pad, n_limbs = tstep.make_example_blocks(**kwargs)
+    pad = -bits.shape[0] % n_dev  # whole blocks per device, as shard_map needs
+    bits = np.concatenate([bits, np.zeros((pad,) + bits.shape[1:], np.uint8)])
+    wl = np.concatenate([wl, np.zeros((pad,) + wl.shape[1:], np.int8)])
+    want_s, want_l = jstep.sharded_step(jmesh.make_mesh(n_dev), bits, wl, counts,
+                                        cutoff, block, n_pad, n_limbs)
+    stats = {}
+    got_s, got_l = tstep.sharded_step(["cpu"] * n_dev, bits, wl, counts, cutoff,
+                                      block, n_pad, n_limbs, stats=stats)
+    one_s, one_l = tstep.single_device_step(bits, wl, counts, cutoff, block,
+                                            n_pad, n_limbs, device="cpu")
+    assert got_s.dtype == torch.int32 and got_l.dtype == torch.int32
+    assert np.array_equal(got_s.numpy(), np.asarray(want_s))
+    assert np.array_equal(got_l.numpy(), np.asarray(want_l))
+    assert torch.equal(got_s, one_s) and torch.equal(got_l, one_l)
+    assert stats["rounds"] >= 1
+
+
+def test_sharded_step_refuses_uneven_blocks():
+    bits, wl, counts, block, n_pad, n_limbs = tstep.make_example_blocks(
+        n_samples=64, n_colors=256, block=32, seed=3)
+    with pytest.raises(ValueError, match="split evenly"):
+        tstep.sharded_step("cpu,cpu,cpu", bits, wl, counts, 0.1, block, n_pad,
+                           n_limbs)

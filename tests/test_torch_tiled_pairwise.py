@@ -373,3 +373,106 @@ def test_cluster_from_index_refuses_ani(tmp_path, capsys):
         tcluster.cluster_from_index(index, str(tmp_path / "t"), 0.5, "ani",
                                     device="cpu")
     assert capsys.readouterr().err.count("does not support the ani") == 2
+
+
+# ---- several devices -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("panel", [64, 128, 300])
+def test_panel_row_work_and_filter_plan_rows_match_jax(panel):
+    o, m, w = csr(panel + 1)
+    jplan, tplan = both_plans(o, m, w, 700, panel)
+    work = ttp.panel_row_work(tplan)
+    assert work.dtype == np.int64
+    assert np.array_equal(work, jtp.panel_row_work(jplan))
+    rows_seen = []
+    for rows in (np.arange(0, tplan.n_panels, 2), [1], [tplan.n_panels - 1, 0]):
+        want = jtp.filter_plan_rows(jplan, rows)
+        got = ttp.filter_plan_rows(tplan, rows)
+        for field in PLAN_FIELDS:
+            a, b = getattr(want, field), getattr(got, field)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b), field
+            else:
+                assert a == b, field
+        rows_seen.extend(got.pair_keys.tolist())
+    odd = ttp.filter_plan_rows(tplan, np.arange(1, tplan.n_panels, 2))
+    even = ttp.filter_plan_rows(tplan, np.arange(0, tplan.n_panels, 2))
+    assert sorted(odd.pair_keys.tolist() + even.pair_keys.tolist()) == \
+        tplan.pair_keys.tolist()
+    assert int(odd.pair_off[-1] + even.pair_off[-1]) == int(tplan.pair_off[-1])
+
+
+@pytest.mark.parametrize("panel,devices,pair_parallel", [
+    (128, ["cpu", "cpu"], True),    # 21 pairs >= 2 per device: round-robin
+    (128, ["cpu"] * 3, True),
+    (512, ["cpu", "cpu"], False),   # 3 pairs: each pair's blocks split
+    (256, "cpu,cpu,cpu,cpu", False),
+])
+def test_stream_tsv_on_a_device_list_matches_jax(tmp_path, panel, devices,
+                                                 pair_parallel):
+    """kspider_tpu's stream on its 8-device CPU mesh (pair-parallel or
+    mesh-sharded by its own rule) and the port's on a list of CPU devices
+    write the same TSV bytes as the one-device stream."""
+    rng = np.random.default_rng(53)
+    n = 700
+    o, m, w = random_csr(rng, 900, n, max_degree=12, max_weight=30000)
+    idx = _FakeIndex(o, m, w, n, rng.integers(1, 100000, size=n))
+    jax_prefix = str(tmp_path / "jax")
+    jtp.stream_pairwise_tsv(idx, jax_prefix, panel=panel, engine="auto",
+                            block=BLOCK)
+    one_prefix = str(tmp_path / "one")
+    ttp.stream_pairwise_tsv(idx, one_prefix, device="cpu", panel=panel,
+                            block=BLOCK)
+    port_prefix = str(tmp_path / "port")
+    stats = {}
+    rows = ttp.stream_pairwise_tsv(idx, port_prefix, device=devices,
+                                   panel=panel, block=BLOCK, stats=stats)
+    assert rows > 0
+    assert stats["pair_parallel"] == pair_parallel
+    assert stats["devices"] == len(ttp.make_mesh(devices))
+    assert stats["cache_bytes"] == 0  # a device list turns the cache off
+    assert _tsv(port_prefix) == _tsv(jax_prefix) == _tsv(one_prefix)
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_iter_panel_pairs_sharded_matches_jax_mesh(big):
+    """Per-pair sharding against kspider_tpu's ``mesh=`` engine, also with
+    weights whose sums pass 2**31."""
+    from kspider_tpu.parallel.mesh import make_mesh
+
+    o, m, w = csr(59, n_colors=300 if big else 500,
+                  max_weight=50 if big else 40000)
+    if big:
+        w = w * (1 << 27)
+    jplan, tplan = both_plans(o, m, w, 700, 256)
+    assert (tplan.max_weight_sum >= 2**31) == big
+    calls = []
+    real = cp.cooccurrence_tiles
+
+    def spy(bits_i, *a, **k):
+        calls.append(bits_i.shape[0])
+        return real(bits_i, *a, **k)
+
+    stats = {}
+    try:
+        cp.cooccurrence_tiles = spy
+        got = assert_same_stream(
+            jtp.iter_panel_pairs(jplan, block=BLOCK, tile=TILE,
+                                 mesh=make_mesh(2)),
+            ttp.iter_panel_pairs(tplan, device=["cpu", "cpu"], block=BLOCK,
+                                 cache_bytes=1 << 20, stats=stats),
+        )
+    finally:
+        cp.cooccurrence_tiles = real
+    assert not stats["pair_parallel"]
+    # two launches per chunk, one per device, each on half the blocks
+    assert len(calls) % 2 == 0 and len(calls) >= 2 * len(got)
+    assert any(g[0] == g[1] for g in got) and any(g[0] != g[1] for g in got)
+
+
+def test_cluster_from_index_on_a_device_list_matches_jax(tmp_path):
+    index = _family_index(61)
+    clusters = _cluster_both(index, str(tmp_path), 0.3, "max_cont", 16,
+                             ["cpu", "cpu"])
+    assert len(clusters) == 12
