@@ -8,10 +8,15 @@ Phases, each printed on its own line; any failure exits non-zero:
 1. device: card name, card count, ``nvidia-smi`` name and power limit;
 2. build: compiles the Gram kernel from ``kspider_tpu_torch/csrc`` with nvcc;
 3. kernel vs plain: every launch mode of the kernel (all tiles of a
-   square, all tiles of a rectangle with distinct sides, upper tiles) at
-   the dense path's shapes and at small ragged ones, in both forms (int8,
-   bf16), bit-exact int32 against the plain torch version of each form,
-   each timed with CUDA events;
+   square, all tiles of a rectangle with distinct sides, upper tiles, and a
+   shuffled list of tiles) at the dense path's shapes and at small ragged
+   ones with L = 1, 2, 3, in both forms (int8 ``csrc/gram_int8.cu``, bf16
+   ``csrc/gram_bf16.cu``), bit-exact int32 against the plain torch version
+   of each form.  Each case prints the kernel's ms and the plain
+   version's (CUDA events), its bound ms (operations over the tensor peak
+   of the form, or bytes over the memory rate, whichever is larger) and
+   the ms of one ``torch._int_mm`` on the unpacked operands (the library
+   yardstick, timed here and never called by the port);
 4. dense path: a synthetic genus-scale index (F families of 8 samples,
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
    and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
@@ -57,11 +62,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    cluster outputs must equal scipy's and recover the families, and the
    kernel must have run in both modes.
 
-jax must never have been imported.  Launch counts are reset to 0 right
-before each path and read right after it.  The line before the last is a
-JSON object describing the kernel's two forms; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits 1
-and prints no result.
+Neither jax nor kspider_tpu may have been imported.  Launch counts are
+reset to 0 right before each path and read right after it.  The line
+before the last is a JSON object describing the kernel's two forms (time,
+plain time, bound and library time at the path's shapes, launches per
+path); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+card the script exits 1 and prints no result.
 """
 
 import argparse
@@ -91,9 +97,11 @@ CUTOFF = 0.2
 CLUSTERS_SUFFIX = f"_kSpider_clusters_{CUTOFF * 100.0}%.tsv"
 ARTIFACTS = ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
              "_color_count.bin", ".namesMap", ".extra")
-#: the kernel's name in torch.profiler and the template argument of each form
-KERNEL = "gram_tiles_kernel"
-FORMS = {torch.int8: "Int8Form", torch.bfloat16: "Bf16Form"}
+#: each form's kernel name in torch.profiler, its source and its tensor peak
+FORMS = {
+    torch.int8: ("gram_int8_wgmma_kernel", "kspider_tpu_torch/csrc/gram_int8.cu"),
+    torch.bfloat16: ("gram_tiles_kernel", "kspider_tpu_torch/csrc/gram_bf16.cu"),
+}
 
 
 def phase(name, ok, detail=""):
@@ -149,8 +157,8 @@ def make_index(rng, n_families, prefix):
     """Generate, index (host build) and write the artifacts of one synthetic
     collection; returns the index, the names, the hash sets and the host
     build's wall."""
-    from kspider_tpu.core.index import build_index_from_hash_sets
-    from kspider_tpu.io import artifacts
+    from kspider_tpu_torch.core.index import build_index_from_hash_sets
+    from kspider_tpu_torch.io import artifacts
 
     t0 = time.perf_counter()
     names, arrays = make_hash_sets(rng, n_families)
@@ -168,23 +176,13 @@ def make_index(rng, n_families, prefix):
     return index, names, arrays, host_build_s
 
 
-def cuda_ms(fn, reps):
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps,
-                 compute_dtype=torch.int8):
-    """Kernel vs plain on one launch mode of one form; returns
-    (max_abs_err, ms, plain_ms)."""
+                 compute_dtype=torch.int8, library_ms=None):
+    """Kernel vs plain on one launch mode of one form; returns a dict of
+    max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms (one
+    ``torch._int_mm`` of the unpacked operands, timed unless given)."""
+    from kspider_tpu_torch import gram_bench as gb
+
     n_limbs = wl.shape[1]
     dev = bits_i.device
 
@@ -199,14 +197,27 @@ def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps,
     torch.cuda.synchronize()
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
     del out_k, out_p
-    ms = cuda_ms(lambda: run(cp.cooccurrence_tiles), reps)
-    plain_ms = cuda_ms(lambda: run(cp.cooccurrence_tiles_plain), max(1, reps // 5))
+    ms = gb.cuda_ms(lambda: run(cp.cooccurrence_tiles), reps)
+    plain_ms = gb.cuda_ms(lambda: run(cp.cooccurrence_tiles_plain), max(1, reps // 5))
+    ops = gb.gram_ops(len(ti), bits_i.shape[0] * bits_i.shape[2], n_limbs)
+    out_meta = torch.empty((n_limbs, npad_i, npad_j), dtype=torch.int32,
+                           device="meta")
+    bound_ms, bound_by = gb.bound(
+        ops, gb.gram_bytes(bits_i, bits_j, wl, out_meta),
+        gb.INT8_OPS_PER_S if compute_dtype == torch.int8 else gb.BF16_OPS_PER_S)
+    if library_ms is None:
+        lhs, rhs = gb.int_mm_operands(bits_i, bits_j, wl)
+        library_ms = gb.cuda_ms(lambda: torch._int_mm(lhs, rhs), reps)
+        del lhs, rhs
+        torch.cuda.empty_cache()
     print(f"  {label} [{str(compute_dtype)[6:]}]: NB={bits_i.shape[0]} "
           f"npad={npad_i}x{npad_j} "
           f"block={bits_i.shape[2]} L={n_limbs} pairs={len(ti)} "
-          f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
-          flush=True)
-    return err, ms, plain_ms
+          f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}, share {bound_ms / ms:.3f}) "
+          f"library_ms={library_ms:.4f}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def reset_counts(cp):
@@ -227,7 +238,7 @@ def read_counts(cp):
 def kernel_ms(averages, compute_dtype):
     """Device ms of one form of the Gram kernel in torch.profiler averages."""
     return sum(getattr(e, "device_time_total", 0) for e in averages
-               if KERNEL in e.key and FORMS[compute_dtype] in e.key) / 1000.0
+               if FORMS[compute_dtype][0] in e.key) / 1000.0
 
 
 def fmt_ms(ms):
@@ -243,7 +254,7 @@ def run_cli(cli, *args):
 
 def host_reference_tsv(index, ref_prefix, prefix, required):
     """The OpenMP host engine's pairwise TSV (and namesMap) for ``index``."""
-    from kspider_tpu.io import native
+    from kspider_tpu_torch.io import native
     from kspider_tpu_torch.core import pairwise as core_pairwise
     from kspider_tpu_torch.ops import pairwise as pw
 
@@ -623,7 +634,7 @@ def bins_cli_phase(cli, names, arrays, workdir):
     """Phase 4f: ``index --bins`` with and without ``--device-build
     --device cuda`` on the collection written as .bin files; returns the
     two walls (host, device)."""
-    from kspider_tpu.io import phmap as phmap_io
+    from kspider_tpu_torch.io import phmap as phmap_io
 
     bins = os.path.join(workdir, "bins")
     os.makedirs(bins)
@@ -753,24 +764,34 @@ def main():
         ("all tiles, rect", bits_a, bits_b, wl, *cp.all_tiles(nt // 2, nt - nt // 2),
          8 * half, n_pad - 8 * half, 5),
     ]
-    for nb, npad_i, npad_j, block, L in [(1, 128, 128, 128, 1), (1, 256, 384, 128, 2),
-                                         (1, 384, 384, 1024, 3), (3, 640, 256, 256, 2)]:
-        bi = torch.from_numpy(rng.integers(0, 256, (nb, npad_i // 8, block), dtype=np.uint8)).to(dev)
-        bj = torch.from_numpy(rng.integers(0, 256, (nb, npad_j // 8, block), dtype=np.uint8)).to(dev)
-        w = torch.from_numpy(rng.integers(0, 128, (nb, L, block), dtype=np.int8)).to(dev)
+    # ragged shapes, L = 1, 2, 3 (two limbs a launch, an odd limb alone).
+    # The first four draw from the collections' stream, so the N = 32,768
+    # collection stays what earlier runs measured; later cases draw apart.
+    extra = np.random.default_rng(args.seed + 1)
+    for k, (nb, npad_i, npad_j, block, L) in enumerate(
+            [(1, 128, 128, 128, 1), (1, 256, 384, 128, 2), (1, 384, 384, 1024, 3),
+             (3, 640, 256, 256, 2), (5, 384, 640, 128, 3), (2, 1152, 896, 640, 1)]):
+        r = rng if k < 4 else extra
+        bi = torch.from_numpy(r.integers(0, 256, (nb, npad_i // 8, block), dtype=np.uint8)).to(dev)
+        bj = torch.from_numpy(r.integers(0, 256, (nb, npad_j // 8, block), dtype=np.uint8)).to(dev)
+        w = torch.from_numpy(r.integers(0, 128, (nb, L, block), dtype=np.int8)).to(dev)
         ti_, tj_ = npad_i // 128, npad_j // 128
-        modes.append(("all tiles, rect, small", bi, bj, w, *cp.all_tiles(ti_, tj_), npad_i, npad_j, 20))
-        modes.append(("all tiles, square, small", bi, bi, w, *cp.all_tiles(ti_, ti_), npad_i, npad_i, 20))
-        modes.append(("upper tiles, small", bi, bi, w, *cp.upper_triangle_tiles(ti_), npad_i, npad_i, 20))
+        shuffled = extra.permutation(ti_ * tj_)
+        li, lj = (a[shuffled] for a in cp.all_tiles(ti_, tj_))
+        modes.append((f"all tiles, rect, small, L={L}", bi, bj, w, *cp.all_tiles(ti_, tj_), npad_i, npad_j, 20))
+        modes.append((f"all tiles, square, small, L={L}", bi, bi, w, *cp.all_tiles(ti_, ti_), npad_i, npad_i, 20))
+        modes.append((f"upper tiles, small, L={L}", bi, bi, w, *cp.upper_triangle_tiles(ti_), npad_i, npad_i, 20))
+        modes.append((f"shuffled list, rect, small, L={L}", bi, bj, w, li, lj, npad_i, npad_j, 20))
     for label, *rest in modes:
         results.append(compare_mode(cp, label, *rest))
-    max_err = max(r[0] for r in results)
-    main_ms, main_plain_ms = results[0][1], results[0][2]
+    max_err = max(r["max_abs_err"] for r in results)
+    dense_row, square_row, rect_row = results[:3]
     phase("kernel vs plain", max_err == 0,
           f"{len(results)} cases, max_abs_err={max_err} (exact int32 required)")
-    results_bf16 = [compare_mode(cp, label, *rest, compute_dtype=torch.bfloat16)
-                    for label, *rest in modes]
-    max_err_bf16 = max(r[0] for r in results_bf16)
+    results_bf16 = [compare_mode(cp, label, *rest, compute_dtype=torch.bfloat16,
+                                 library_ms=r["library_ms"])
+                    for (label, *rest), r in zip(modes, results)]
+    max_err_bf16 = max(r["max_abs_err"] for r in results_bf16)
     del bits, wl, bits_a, bits_b, modes
     torch.cuda.empty_cache()
     phase("bf16 kernel vs plain", max_err_bf16 == 0,
@@ -914,14 +935,15 @@ def main():
             cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5)
         tiled_modes_bf16[mode] = compare_mode(
             cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5,
-            compute_dtype=torch.bfloat16)
+            compute_dtype=torch.bfloat16,
+            library_ms=tiled_modes[mode]["library_ms"])
         del bi, bj, wl_t
     torch.cuda.empty_cache()
-    tiled_err = max(r[0] for r in tiled_modes.values())
+    tiled_err = max(r["max_abs_err"] for r in tiled_modes.values())
     max_err = max(max_err, tiled_err)
     phase("kernel vs plain at the tiled shapes", tiled_err == 0,
           f"max_abs_err={tiled_err} (exact int32 required)")
-    tiled_err_bf16 = max(r[0] for r in tiled_modes_bf16.values())
+    tiled_err_bf16 = max(r["max_abs_err"] for r in tiled_modes_bf16.values())
     max_err_bf16 = max(max_err_bf16, tiled_err_bf16)
     phase("bf16 kernel vs plain at the tiled shapes", tiled_err_bf16 == 0,
           f"max_abs_err={tiled_err_bf16} (exact int32 required)")
@@ -969,6 +991,9 @@ def main():
     check_clusters(big + CLUSTERS_SUFFIX, ref_out, args.tiled_families,
                    "clusters --from-index")
     phase("no jax", "jax" not in sys.modules)
+    tpu_mods = [m for m in sys.modules
+                if m == "kspider_tpu" or m.startswith("kspider_tpu.")]
+    phase("no kspider_tpu", not tpu_mods, f"{tpu_mods[:3]}")
     shutil.rmtree(args.workdir, ignore_errors=True)
     print(f"[smoke] wall {time.perf_counter() - t_start:.3f} s", flush=True)
 
@@ -983,51 +1008,48 @@ def main():
           + "; two processes "
           + ", ".join(f"{k} {v:.3f} s" for k, v in mp_s.items())
           + f"; rank 0: {merge_line or 'no merge line'}", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "gram_int8_tiles",
-        "route": "cuda",
-        "source": "kspider_tpu_torch/csrc/gram_int8.cu",
-        "replaces": REPLACES,
-        "also_replaces": ALSO_REPLACES,
-        "launches": sum(c["total"] for c in launches.values()),
-        "launches_by_path": launches,
-        "max_abs_err": max_err,
-        "ms": tiled_modes["all"][1],
-        "plain_ms": tiled_modes["all"][2],
-        "ms_by_mode": {
-            "tiled_upper": tiled_modes["upper"][1],
-            "tiled_all": tiled_modes["all"][1],
-            "dense_upper": main_ms,
-        },
-        "plain_ms_by_mode": {
-            "tiled_upper": tiled_modes["upper"][2],
-            "tiled_all": tiled_modes["all"][2],
-            "dense_upper": main_plain_ms,
-        },
-        "shard_ms": {"devices": devs, "sharded": shard_ms,
-                     "sharded_step": step_shard_ms},
-    }, {
-        "name": "gram_bf16_tiles",
-        "route": "cuda",
-        "source": "kspider_tpu_torch/csrc/gram_int8.cu",
-        "replaces": REPLACES,
-        "also_replaces": ALSO_REPLACES,
-        "compute_dtype": "bfloat16",
-        "launches": bf16_launches,
-        "max_abs_err": max_err_bf16,
-        "ms": tiled_modes_bf16["all"][1],
-        "plain_ms": tiled_modes_bf16["all"][2],
-        "ms_by_mode": {
-            "tiled_upper": tiled_modes_bf16["upper"][1],
-            "tiled_all": tiled_modes_bf16["all"][1],
-            "dense_upper": results_bf16[0][1],
-        },
-        "plain_ms_by_mode": {
-            "tiled_upper": tiled_modes_bf16["upper"][2],
-            "tiled_all": tiled_modes_bf16["all"][2],
-            "dense_upper": results_bf16[0][2],
-        },
-    }]}))
+    def kernel_entry(name, compute_dtype, launches_total, err, rows):
+        """The kernel's JSON entry: its time, plain time, bound and library
+        time at the dense path's shape (the main path), and every number
+        by shape."""
+        main = rows["dense_upper"]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": FORMS[compute_dtype][1],
+            "replaces": REPLACES,
+            "also_replaces": ALSO_REPLACES,
+            "compute_dtype": str(compute_dtype)[6:],
+            "launches": launches_total,
+            "max_abs_err": err,
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "by_shape": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}
+                         for k, r in rows.items()},
+        }
+
+    int8_rows = {"dense_upper": dense_row, "square_all": square_row,
+                 "rect_all": rect_row, "tiled_upper": tiled_modes["upper"],
+                 "tiled_all": tiled_modes["all"]}
+    bf16_rows = {"dense_upper": results_bf16[0], "square_all": results_bf16[1],
+                 "rect_all": results_bf16[2],
+                 "tiled_upper": tiled_modes_bf16["upper"],
+                 "tiled_all": tiled_modes_bf16["all"]}
+    int8_entry = kernel_entry("gram_int8_tiles", torch.int8,
+                              sum(c["total"] for c in launches.values()),
+                              max_err, int8_rows)
+    int8_entry["launches_by_path"] = launches
+    int8_entry["shard_ms"] = {"devices": devs, "sharded": shard_ms,
+                              "sharded_step": step_shard_ms}
+    print(json.dumps({"kernels": [
+        int8_entry,
+        kernel_entry("gram_bf16_tiles", torch.bfloat16, bf16_launches,
+                     max_err_bf16, bf16_rows),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
 

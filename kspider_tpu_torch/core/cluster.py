@@ -5,7 +5,7 @@ Counterpart of ``kspider_tpu/core/cluster.py`` (the reference's
 an edge for every pairwise row whose selected distance column * 100 >=
 cutoff, connected components written one comma-joined cluster per line to
 ``{prefix}_kSpider_clusters_{cutoff*100}%.tsv``.  The TSV is read by the
-shared chunked reader of ``kspider_tpu.io.pairwise_tsv``.
+chunked reader of ``kspider_tpu_torch.io.pairwise_tsv``.
 :func:`cluster_from_index` (``--from-index``) skips the TSV and clusters
 straight from the panel-streamed engine's pair stream.
 """
@@ -15,9 +15,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from kspider_tpu.io import artifacts as artifacts_io
-from kspider_tpu.io import pairwise_tsv as pw_tsv
-from kspider_tpu.utils.logger import Logger
+from kspider_tpu_torch.io import artifacts as artifacts_io
+from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
+from kspider_tpu_torch.utils.logger import Logger
 from kspider_tpu_torch.ops import cc as cc_ops
 from kspider_tpu_torch.parallel.mesh import make_mesh
 

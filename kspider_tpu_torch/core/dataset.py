@@ -1,12 +1,10 @@
 """Directory-level index builds: sourmash sig dirs, .bin dirs, .phmap dirs.
 
-Counterpart of ``kspider_tpu/core/dataset.py``, whose device build imports
-jax.  Each function reads its directory exactly as the JAX package's does,
-then builds with the host lexsort (``device=None``) or with the postings
-sort on a torch device (:func:`kspider_tpu_torch.core.index.build_index_device`),
-and writes the same five artifacts.  The readers and writers (``sigs``,
-``phmap``, ``artifacts``) and ``dir_prefix_of`` are the JAX package's
-jax-free modules.
+Counterpart of ``kspider_tpu/core/dataset.py``.  Each function reads its
+directory exactly as the JAX package's does, then builds with the host
+lexsort (``device=None``) or with the postings sort on a torch device
+(:func:`kspider_tpu_torch.core.index.build_index_device`), and writes the
+same five artifacts.
 """
 
 import functools
@@ -15,14 +13,25 @@ from typing import List, Optional
 
 import numpy as np
 
-from kspider_tpu.core.constants import HashingMode, SlicingMode
-from kspider_tpu.core.dataset import dir_prefix_of
-from kspider_tpu.core.index import ColorIndex, build_index_from_hash_sets
-from kspider_tpu.io import artifacts as artifacts_io
-from kspider_tpu.io import phmap as phmap_io
-from kspider_tpu.io import sigs as sigs_io
-from kspider_tpu.utils.logger import Logger
-from kspider_tpu_torch.core.index import build_index_device
+from kspider_tpu_torch.core.constants import HashingMode, SlicingMode
+from kspider_tpu_torch.core.index import (
+    ColorIndex,
+    build_index_device,
+    build_index_from_hash_sets,
+)
+from kspider_tpu_torch.io import artifacts as artifacts_io
+from kspider_tpu_torch.io import phmap as phmap_io
+from kspider_tpu_torch.io import sigs as sigs_io
+from kspider_tpu_torch.utils.logger import Logger
+
+
+def dir_prefix_of(path: str) -> str:
+    """Reference prefix rule: trailing slashes stripped, then basename
+    (kSpider/src/sourmash_indexing.cpp:55-61)."""
+    p = str(path)
+    while p.endswith("/"):
+        p = p[:-1]
+    return os.path.basename(p)
 
 
 def _build(names, hash_arrays, *, ksize, device, output_prefix, default_prefix,

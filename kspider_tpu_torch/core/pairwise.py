@@ -10,9 +10,9 @@ contract (``kSpider::pairwise``):
   shared count and min/avg/max containment in float32, printed like C++'s
   ``ostream << float`` (6 significant digits).
 
-The TSV is written by the shared native writers of ``kspider_tpu.io.native``
-(pure-Python fallbacks below), so both packages emit the same bytes for the
-same pairs.  Up to ``AUTO_TILED_THRESHOLD`` samples a torch device runs the
+The TSV is written by the native writers of ``kspider_tpu_torch.io.native``
+(a copy of kspider_tpu's bridge to the same ``native/`` library; pure-Python
+fallbacks below), so both packages emit the same bytes for the same pairs.  Up to ``AUTO_TILED_THRESHOLD`` samples a torch device runs the
 dense engine (one NxN matrix); above it, or with ``engine="tiled"``, the
 panel-streamed engine writes the TSV panel row by panel row.  ``--cpu``
 (``device=None``) runs the numpy dense engine at any size, as kspider_tpu
@@ -24,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from kspider_tpu.core.index import ColorIndex
+from kspider_tpu_torch.core.index import ColorIndex
 from kspider_tpu_torch.ops import pairwise as pairwise_ops
 
 # beyond this sample count the JAX package switches to its panel-streamed
@@ -60,7 +60,7 @@ def write_pairwise_tsv(
     prefix: str, index: ColorIndex, shared: np.ndarray, min_shared: int = 1
 ) -> int:
     """Emit ``{p}_kSpider_pairwise.tsv``; returns the number of pair rows."""
-    from kspider_tpu.io import native
+    from kspider_tpu_torch.io import native
 
     n = index.num_groups
     min_shared = max(1, int(min_shared))
@@ -113,7 +113,7 @@ def write_pairwise_rows_coo(
     """Append pre-sorted COO pair rows (0-based ids) to the pairwise TSV;
     ``header=True`` truncates and writes the header line first.  Same row
     format as :func:`write_pairwise_tsv`."""
-    from kspider_tpu.io import native
+    from kspider_tpu_torch.io import native
 
     if native.enabled():
         try:
@@ -191,7 +191,7 @@ def run_pairwise(
     is returned."""
     t0 = time.perf_counter()
     if index is None:
-        from kspider_tpu.io import artifacts, npz_index
+        from kspider_tpu_torch.io import artifacts, npz_index
 
         index = npz_index.load(prefix)
         if index is None:

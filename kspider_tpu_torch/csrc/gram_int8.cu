@@ -1,354 +1,458 @@
-// Weighted Gram tiles from packed membership bits on tensor cores, in an
-// int8 form and a bf16 form.
+// Weighted Gram tiles from packed membership bits, int8 form, on Hopper's
+// warpgroup tensor-core products (wgmma).
 //
-// Replaces the four Pallas kernels of kspider_tpu/ops/pallas_pairwise.py:
-// cooccurrence_pallas (full square), cooccurrence_pallas_rect (two panels),
-// cooccurrence_pallas_tri (explicit upper-triangle tile list) and
-// cooccurrence_pallas_sym (upper strips, mirrored afterwards), each in both
-// of its compute_dtype forms.  All four compute, over a set of output tiles,
+// Replaces the int8 form of the four Pallas kernels of
+// kspider_tpu/ops/pallas_pairwise.py: cooccurrence_pallas (full square),
+// cooccurrence_pallas_rect (two panels), cooccurrence_pallas_tri (explicit
+// upper-triangle tile list) and cooccurrence_pallas_sym (upper strips,
+// mirrored afterwards).  All four compute, over a set of output tiles,
 //
 //   out[l, i, j] += sum_c bit_i[c, i] * w_l[c] * bit_j[c, j]
 //
-// and here they are one kernel driven by a tile-pair list: every launch mode
-// (all tiles of a rectangle, upper tiles of one panel) is just a list.
+// and here they are one kernel driven by a list of 128x128 tile pairs:
+// every launch mode (all tiles of a rectangle, upper tiles of one panel, any
+// other list) is just a list.  The bf16 form is csrc/gram_bf16.cu.
 //
 // Layout (the JAX package's transposed one, colors contiguous):
 //   bits   u8[NB, n_pad/8, block]  byte r of color c holds samples 8r..8r+7,
 //                                  most significant bit first
 //   w      i8[NB, L, block]        base-128 weight limbs, each in [0, 127]
-//   out   i32[L, npad_i, npad_j]   accumulated in place (zeroed by the caller)
+//   out   i32[L, npad_i, npad_j]   accumulated in place (out += the sums)
 //
-// Design: grid = (tile pairs, limbs); one CTA of 8 warps owns one 128x128
-// output tile of one limb and sweeps every color, one chunk of colors at a
-// time.  Per chunk each thread loads 32-bit words of packed bits per side
-// (coalesced, colors contiguous) and unpacks them with shifts straight into
-// shared memory as K-major 0/1 operands (the j side multiplied by its limb,
-// which is exact in both forms because limbs are <= 127).  Warps then run
-// wmma m16n16k16 products; each warp owns a 32x64 block of the tile (8
-// accumulator fragments).  The next chunk's global words are loaded into
-// registers before the products, so the loads overlap the math.
+// Bound: operations.  Each packed byte feeds 8 x 128 x 2 MACs per limb, far
+// above the card's ops:byte ratio, so the kernel is bound by the tensor
+// cores (1,979 int8 TOP/s dense on an H100 SXM), not by memory.
 //
-// The two forms (template parameter Form):
-//   int8: s8 x s8 -> s32 products straight into the int32 accumulators,
-//         128-color chunks.
-//   bf16: bf16 x bf16 -> f32 products, the form of the Pallas kernels with
-//         compute_dtype=bfloat16: f32 partial sums inside one color block,
-//         each block's sum added into the int32 accumulators.  64-color
-//         chunks keep both bf16 operand buffers (2 x 16.5 KB) and the flush
-//         staging (8 KB) under the 48 KB static shared-memory limit.  wmma's
-//         accumulator element layout is opaque and not promised equal for
-//         float and int fragments, so a flush goes through shared memory:
-//         store the f32 fragment, convert it in place to int32, load it as
-//         an int fragment (the same type as the accumulator, hence the same
-//         layout) and add element by element.
+// Design, per 128-color chunk of one tile (a chunk is exactly one 128-byte
+// K-major row per sample):
+//  - products: wgmma m64n128k32 s8 x s8 -> s32.  Two warpgroups own rows
+//    0..63 and 64..127 of the tile.  The limb sits on the A side, which
+//    lives in registers: acc_l = (bit_i * w_l)^T . bit_j.
+//  - B (the 0/1 j side) is unpacked once per chunk into shared memory in
+//    the canonical K-major layout with the 128-byte swizzle, and read by
+//    every limb and both warpgroups.
+//  - A is built in registers straight from the packed bytes and the limb
+//    bytes, in wgmma's A fragment layout: (word >> (7 - p)) & 0x01010101
+//    gives 4 colors' bits of sample p as 4 bytes, times 0xFF masks the 4
+//    limb bytes.
+//  - the packed bits and limbs (2 KB per side and 128 B per limb) come
+//    through a ring of kStages stages, filled with 16-byte cp.async by all
+//    threads, each stage with its mbarrier (one arrival per thread).  One
+//    cp.async.bulk per 128-byte row (34 a chunk, from one warp) held a
+//    chunk to ~3,800 cycles on an H100.
+//  - the tensor pipe never drains inside an item: chunk k's wgmmas stay in
+//    flight across the chunk barrier (wgmma.wait_group 1), while the CTA
+//    unpacks chunk k+1's B into the third of three B buffers and builds its
+//    A fragments into the register set chunk k-1 used.
+//  - persistence: one CTA per SM walks (tile pair, limb group) items; the
+//    ring runs on across items, so the next item's loads overlap this
+//    item's epilogue (out += acc, int32 read-add-write).
+//  - limbs two at a time (2 x 64 int32 accumulators per thread); an odd
+//    last limb is a second launch with one accumulator.
 //
-// Bound: at the dense engine's shapes (K of ~10^5 colors, 1 KB of packed
-// bits per color per side) each packed byte feeds 8 x 128 x 2 MACs, far
-// above the card's ops:byte ratio, so the kernel is bound by tensor-core
-// issue, not by memory.  What this simple design gives up: wgmma and TMA
-// (mma.sync-class wmma reaches a fraction of Hopper's peak), a multi-stage
-// shared-memory ring (one buffer, two barriers per chunk), persistence,
-// reuse of one unpacked chunk across limbs (each limb is its own CTA and
-// unpacks again), and skipping the lower half of diagonal tiles.
+// On an H100 (700 W) this reaches 53-56% of the int8 bound at the main
+// path's shapes.  What holds it there is shared memory, shared by the
+// products' B reads (64 KB a chunk at L = 2) and the unpack and A build;
+// a deeper product queue needs a third A register set, which does not fit
+// beside 128 accumulators (248 of 255 registers).
 //
 // Exactness: a limb term is at most 127 per color and the caller bounds the
-// colors per accumulation (_MAX_COLORS_PER_CALL), so int32 never wraps.  In
-// the bf16 form every product is an integer <= 127, and a block's f32 sum
-// stays below 2^24 (the caller refuses blocks above 2^24 / 127 colors), so
-// it is exact in any summation order.
+// colors per accumulation (_MAX_COLORS_PER_CALL), so int32 never wraps.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kTile = 128;      // output tile edge (samples)
+constexpr int kChunk = 128;     // colors per chunk: one 128-byte B row
+constexpr int kStages = 4;      // packed-input ring depth
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kKSteps = kChunk / 32;             // wgmma k32 steps per chunk
+constexpr int kSideBytes = (kTile / 8) * kChunk;  // packed bits of one side
+constexpr int kBBytes = kTile * kChunk;           // unpacked B of one chunk
 
-constexpr int kTile = 128;         // output tile edge (samples)
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kWarps = kThreads / 32;
-
-// Operand form: element type, partial-sum type, colors per chunk, and how a
-// 32-bit word of packed bits (4 colors of 8 samples) becomes operands.
-struct Int8Form {
-  using Elem = signed char;
-  using Part = int;
-  static constexpr int kChunk = 128;
-  static constexpr bool kFlush = false;  // products go straight into int32
+// Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes): three B buffers, the ring of
+// packed stages (i bits, j bits, G limb rows), one mbarrier per stage.
+template <int G>
+struct Smem {
+  static constexpr int kStageBytes = 2 * kSideBytes + G * kChunk;
+  static constexpr int kRing = 3 * kBBytes;
+  static constexpr int kBars = kRing + kStages * kStageBytes;
+  static constexpr int kBytes = kBars + kStages * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-struct Bf16Form {
-  using Elem = __nv_bfloat16;
-  using Part = float;
-  static constexpr int kChunk = 64;
-  static constexpr bool kFlush = true;   // f32 per block, then into int32
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <typename Form>
-struct Geometry {
-  using Elem = typename Form::Elem;
-  static constexpr int kChunk = Form::kChunk;
-  static constexpr int kK16 = kChunk / 16;  // wmma k-steps per chunk
-  // one 16-color panel of an operand: kTile rows x 16 elements, padded by 32
-  // bytes so unpack stores spread over the banks and every panel stays
-  // 32-byte aligned for wmma::load_matrix_sync
-  static constexpr int kPanel = kTile * 16 + 32 / sizeof(Elem);
-  static constexpr int kWordsPerSide = (kTile / 8) * kChunk / 4;
-  static constexpr int kWordsPerThread = kWordsPerSide / kThreads;
-  static_assert(kWordsPerThread * kThreads == kWordsPerSide, "chunk split");
-};
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
 
-template <typename Form>
-__device__ __forceinline__ void load_chunk(
-    const uint32_t* __restrict__ bi, const uint32_t* __restrict__ bj,
-    const uint32_t* __restrict__ wl, long long bits_stride_words,
-    uint32_t (&ri)[Geometry<Form>::kWordsPerThread],
-    uint32_t (&rj)[Geometry<Form>::kWordsPerThread],
-    uint32_t (&rw)[Geometry<Form>::kWordsPerThread]) {
-  constexpr int kWordsPerRow = Form::kChunk / 4;
-  #pragma unroll
-  for (int s = 0; s < Geometry<Form>::kWordsPerThread; ++s) {
-    const int q = threadIdx.x + s * kThreads;
-    const int r = q / kWordsPerRow;   // byte row: samples 8r..8r+7
-    const int kw = q % kWordsPerRow;  // word along colors
-    ri[s] = __ldg(bi + r * bits_stride_words + kw);
-    rj[s] = __ldg(bj + r * bits_stride_words + kw);
-    rw[s] = __ldg(wl + kw);
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
 
-// Sample row p of a word: 4 colors, one byte each.  int8: the 4 operand
-// bytes as one word.  bf16: 4 bf16 values as two words.
-__device__ __forceinline__ void store_row(signed char* dst, uint32_t a) {
-  *reinterpret_cast<uint32_t*>(dst) = a;
+// 16 bytes from global to shared memory (both addresses 16-byte aligned),
+// through L2 only
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(dst), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi) {
-  return lo | (hi << 16);
+// one arrival on the mbarrier once this thread's earlier cp.asyncs landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(bar) : "memory");
 }
 
-template <typename Form>
-__device__ __forceinline__ void unpack_chunk(
-    typename Form::Elem* __restrict__ sa, typename Form::Elem* __restrict__ sb,
-    const uint32_t (&ri)[Geometry<Form>::kWordsPerThread],
-    const uint32_t (&rj)[Geometry<Form>::kWordsPerThread],
-    const uint32_t (&rw)[Geometry<Form>::kWordsPerThread]) {
-  using G = Geometry<Form>;
-  constexpr int kWordsPerRow = Form::kChunk / 4;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed groups of products are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from reusing registers that asynchronous products
+// still read.  Never applied to accumulators inside the loop: a definition
+// there makes ptxas wait for the products (C7517).
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   #pragma unroll
-  for (int s = 0; s < G::kWordsPerThread; ++s) {
-    const int q = threadIdx.x + s * kThreads;
-    const int r = q / kWordsPerRow;
-    const int kw = q % kWordsPerRow;
-    const int k = 4 * kw;                       // first of 4 colors
-    const int off = (k / 16) * G::kPanel + (k % 16);
-    if constexpr (Form::kFlush) {
-      // the 4 limbs as bf16 bit patterns; integers <= 127 are exact in bf16
-      uint32_t wb[4];
-      #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        wb[c] = __bfloat16_as_ushort(
-            __float2bfloat16_rn(static_cast<float>((rw[s] >> (8 * c)) & 0xFFu)));
-      constexpr uint32_t kOne = 0x3F80u;  // bf16 1.0
-      #pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int row = 8 * r + p;
-        const uint32_t a = ri[s] >> (7 - p);
-        const uint32_t b = rj[s] >> (7 - p);
-        uint32_t av[4], bv[4];
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t abit = (a >> (8 * c)) & 1u;
-          const uint32_t bbit = (b >> (8 * c)) & 1u;
-          av[c] = abit * kOne;
-          bv[c] = bbit * wb[c];
-        }
-        *reinterpret_cast<uint2*>(sa + off + row * 16) =
-            make_uint2(bf16_pair(av[0], av[1]), bf16_pair(av[2], av[3]));
-        *reinterpret_cast<uint2*>(sb + off + row * 16) =
-            make_uint2(bf16_pair(bv[0], bv[1]), bf16_pair(bv[2], bv[3]));
-      }
-    } else {
-      #pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int row = 8 * r + p;
-        // bit (7 - p) of each of the 4 bytes, moved to bit 0 of its byte
-        const uint32_t a = (ri[s] >> (7 - p)) & 0x01010101u;
-        const uint32_t b = (rj[s] >> (7 - p)) & 0x01010101u;
-        store_row(sa + off + row * 16, a);
-        store_row(sb + off + row * 16, (b * 0xFFu) & rw[s]);
-      }
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand with the 128-byte
+// swizzle: 8-row groups of 128-byte rows, 1024 bytes apart (stride byte
+// offset); the leading byte offset is unused for this layout (set to 1).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+// d[64] = A (64x32 s8, registers) . B (32x128 s8, shared memory)
+//         + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n128k32(uint32_t (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 uint32_t accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// Unpacks the j side of one stage (16 byte rows x 128 colors) into B: row
+// n = 8r + p holds bit (7 - p) of byte row r, one byte per color, with the
+// 16-byte column group c stored at group c ^ (n % 8).  Each thread turns 16
+// colors of one byte row into 4 of its 8 sample rows.
+__device__ __forceinline__ void unpack_b(const uint8_t* __restrict__ jbits,
+                                         uint8_t* __restrict__ b) {
+  const int u = threadIdx.x % 128;
+  const int r = u / 8;           // byte row
+  const int grp = u % 8;         // 16-color group
+  const int p0 = 4 * (threadIdx.x / 128);
+  const uint4 w = *reinterpret_cast<const uint4*>(jbits + r * kChunk + grp * 16);
+  #pragma unroll
+  for (int pp = 0; pp < 4; ++pp) {
+    const int p = p0 + pp;
+    const int sh = 7 - p;
+    uint4 v;
+    v.x = (w.x >> sh) & 0x01010101u;
+    v.y = (w.y >> sh) & 0x01010101u;
+    v.z = (w.z >> sh) & 0x01010101u;
+    v.w = (w.w >> sh) & 0x01010101u;
+    *reinterpret_cast<uint4*>(b + (8 * r + p) * kChunk + ((grp ^ p) * 16)) = v;
   }
 }
 
-// One chunk of products into this warp's 2 x 4 fragments.
-template <typename Form, typename Acc>
-__device__ __forceinline__ void mma_chunk(
-    const typename Form::Elem* __restrict__ sa,
-    const typename Form::Elem* __restrict__ sb, int wm, int wn,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> (&acc)[2][4]) {
-  using G = Geometry<Form>;
-  using Elem = typename Form::Elem;
-  #pragma unroll
-  for (int kk = 0; kk < G::kK16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, Elem, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, Elem, wmma::col_major> fb[4];
-    const Elem* pa = sa + kk * G::kPanel;
-    const Elem* pb = sb + kk * G::kPanel;
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      wmma::load_matrix_sync(fa[m], pa + (wm * 32 + m * 16) * 16, 16);
-    #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::load_matrix_sync(fb[n], pb + (wn * 64 + n * 16) * 16, 16);
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::mma_sync(acc[m][n], fa[m], fb[n], acc[m][n]);
-  }
-}
-
-// Adds one block's f32 partial sums into the int32 accumulators and zeroes
-// them, through this warp's 16x16 staging square in shared memory.
-__device__ __forceinline__ void flush_block(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&part)[2][4],
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> (&acc)[2][4],
-    float* __restrict__ stage) {
+// This thread's A fragments of one stage, for each k32 step and limb.  In
+// wgmma's 8-bit A layout a warp holds 16 rows x 32 colors: lane 4g + t has
+// row g in registers 0 and 2, row g + 8 in 1 and 3, colors 4t..4t+3 in 0
+// and 1, 16 + 4t..16 + 4t + 3 in 2 and 3, one byte per color (lowest color
+// in the lowest byte, as in the packed words).  Rows g and g + 8 of warp w
+// in warpgroup h are bit (7 - g) of byte rows 8h + 2w and 8h + 2w + 1.
+template <int G>
+__device__ __forceinline__ void build_a(const uint8_t* __restrict__ stage,
+                                        uint32_t (&a)[kKSteps][G][4]) {
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 2 * (threadIdx.x / 32);  // 8h + 2w
+  const int sh = 7 - g;
+  const uint8_t* ibits = stage;
+  const uint8_t* limbs = stage + 2 * kSideBytes;
   #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int s = 0; s < kKSteps; ++s) {
+    const int lo = 32 * s + 4 * t, hi = lo + 16;
+    uint32_t m[4];
+    m[0] = *reinterpret_cast<const uint32_t*>(ibits + r0 * kChunk + lo);
+    m[1] = *reinterpret_cast<const uint32_t*>(ibits + (r0 + 1) * kChunk + lo);
+    m[2] = *reinterpret_cast<const uint32_t*>(ibits + r0 * kChunk + hi);
+    m[3] = *reinterpret_cast<const uint32_t*>(ibits + (r0 + 1) * kChunk + hi);
     #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::store_matrix_sync(stage, part[m][n], 16, wmma::mem_row_major);
-      __syncwarp();
-      // in place: the int32 bit pattern written through the float pointer,
-      // so the load and the store of one element are never reordered
-      for (int e = lane; e < 256; e += 32)
-        stage[e] = __int_as_float(__float2int_rn(stage[e]));  // exact: < 2^24
-      __syncwarp();
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> t;
-      wmma::load_matrix_sync(t, reinterpret_cast<const int*>(stage), 16,
-                             wmma::mem_row_major);
-      #pragma unroll
-      for (int i = 0; i < t.num_elements; ++i) acc[m][n].x[i] += t.x[i];
-      wmma::fill_fragment(part[m][n], 0.0f);
-      __syncwarp();  // the next store reuses the staging square
+    for (int e = 0; e < 4; ++e) m[e] = ((m[e] >> sh) & 0x01010101u) * 0xFFu;
+    #pragma unroll
+    for (int l = 0; l < G; ++l) {
+      const uint32_t wlo = *reinterpret_cast<const uint32_t*>(limbs + l * kChunk + lo);
+      const uint32_t whi = *reinterpret_cast<const uint32_t*>(limbs + l * kChunk + hi);
+      a[s][l][0] = m[0] & wlo;
+      a[s][l][1] = m[1] & wlo;
+      a[s][l][2] = m[2] & whi;
+      a[s][l][3] = m[3] & whi;
     }
+  }
 }
 
-template <typename Form>
-__global__ void __launch_bounds__(kThreads)
-gram_tiles_kernel(const uint8_t* __restrict__ bits_i,
-                  const uint8_t* __restrict__ bits_j,
-                  const int8_t* __restrict__ wl,
-                  const int32_t* __restrict__ tile_i,
-                  const int32_t* __restrict__ tile_j,
-                  int32_t* __restrict__ out,
-                  int n_blocks, int block, int n_limbs,
-                  int n8_i, int n8_j, int npad_i, int npad_j) {
-  using G = Geometry<Form>;
-  using Elem = typename Form::Elem;
-  constexpr int kChunk = Form::kChunk;
-  __shared__ __align__(128) Elem sa[G::kK16 * G::kPanel];
-  __shared__ __align__(128) Elem sb[G::kK16 * G::kPanel];
-  // per-warp 16x16 f32 staging for the bf16 flush (unused by int8)
-  __shared__ __align__(128) float stage[Form::kFlush ? kWarps * 256 : 8];
-
-  const int pair = blockIdx.x;
-  const int limb = blockIdx.y;
-  const int ti = tile_i[pair];
-  const int tj = tile_j[pair];
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2;  // 4 warps down: rows wm*32 .. +32
-  const int wn = warp % 2;  // 2 warps across: cols wn*64 .. +64
-
-  int32_t* out_tile = out + (long long)limb * npad_i * npad_j
-                      + (long long)(ti * kTile) * npad_j + tj * kTile;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][4];
+template <int G>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[kKSteps][G][4]) {
   #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int s = 0; s < kKSteps; ++s)
     #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::load_matrix_sync(
-          acc[m][n], out_tile + (long long)(wm * 32 + m * 16) * npad_j
-                         + wn * 64 + n * 16,
-          npad_j, wmma::mem_row_major);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, typename Form::Part> part[2][4];
-  if constexpr (Form::kFlush) {
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      #pragma unroll
-      for (int n = 0; n < 4; ++n) wmma::fill_fragment(part[m][n], 0.0f);
+    for (int l = 0; l < G; ++l) fence_regs(a[s][l]);
+}
+
+// Items: (tile pair, limb group) = (it % num_pairs, it / num_pairs); limb
+// group grp covers limbs limb0 + G grp .. + G - 1.  Launch with gridDim.x
+// <= items and Smem<G>::kAlloc bytes of dynamic shared memory.
+template <int G>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_int8_wgmma_kernel(const uint8_t* __restrict__ bits_i,
+                       const uint8_t* __restrict__ bits_j,
+                       const int8_t* __restrict__ wl,
+                       const int32_t* __restrict__ tile_i,
+                       const int32_t* __restrict__ tile_j,
+                       int32_t* __restrict__ out,
+                       int num_pairs, int n_groups, int limb0, int n_blocks,
+                       int block, int n_limbs, int npad_i, int npad_j) {
+  using S = Smem<G>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* bbuf = smem;
+  uint8_t* ring = smem + S::kRing;
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t bars = smem_u32(smem + S::kBars);
+
+  const int tid = threadIdx.x;
+  const int n_items = num_pairs * n_groups;
+  const int my_items = (n_items - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int n_chunks = n_blocks * (block / kChunk);
+  const int total = my_items * n_chunks;  // chunks this CTA streams
+  const int n8_i = npad_i / 8, n8_j = npad_j / 8;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  const int chunks_per_block = block / kChunk;
-  const int n_chunks = n_blocks * chunks_per_block;
-  // 32-bit word strides of the packed layouts
-  const long long bw = block / 4;
-  auto side_ptr = [&](const uint8_t* bits, int n8, int t, int chunk) {
-    const int b = chunk / chunks_per_block;
-    const int c0 = (chunk % chunks_per_block) * kChunk;
-    return reinterpret_cast<const uint32_t*>(bits)
-           + ((long long)b * n8 + t * (kTile / 8)) * bw + c0 / 4;
+  // The load cursor: the next chunk to copy is chunk (ld_b, ld_c0) of this
+  // CTA's item ld_m.  Piece tid of a stage (16 bytes) is byte row tid / 8
+  // (rows 0..15 the i side, 16..31 the j side), bytes 16 (tid % 8) ..;
+  // threads below 8 G also copy piece tid of the G limb rows.
+  const int my_row = tid / 8, my_col = 16 * (tid % 8);
+  const uint8_t* side = my_row < 16 ? bits_i : bits_j;
+  const int side_n8 = my_row < 16 ? n8_i : n8_j;
+  const int32_t* side_tiles = my_row < 16 ? tile_i : tile_j;
+  int ld_q = 0, ld_m = 0, ld_b = 0, ld_c0 = 0;
+  long long ld_row = 0;  // this thread's byte row of block 0 of item ld_m
+  int ld_limb = 0;
+  auto set_load_item = [&]() {
+    const int it = blockIdx.x + ld_m * gridDim.x;
+    const int pair = it % num_pairs;
+    ld_row = side_tiles[pair] * (kTile / 8) + (my_row % 16);
+    ld_limb = limb0 + G * (it / num_pairs);
   };
-  auto limb_ptr = [&](int chunk) {
-    const int b = chunk / chunks_per_block;
-    const int c0 = (chunk % chunks_per_block) * kChunk;
-    return reinterpret_cast<const uint32_t*>(wl)
-           + ((long long)b * n_limbs + limb) * bw + c0 / 4;
+  // copies the next chunk into its stage, arrives once on the stage's
+  // mbarrier, and advances the cursor
+  auto issue = [&]() {
+    const int s = ld_q % kStages;
+    const uint32_t stage = ring_u32 + s * S::kStageBytes;
+    cp_async16(stage + 16 * tid,
+               side + ((long long)ld_b * side_n8 + ld_row) * block + ld_c0 + my_col);
+    if (tid < 8 * G)
+      cp_async16(stage + 2 * kSideBytes + 16 * tid,
+                 wl + ((long long)ld_b * n_limbs + ld_limb + tid / 8) * block
+                    + ld_c0 + my_col);
+    cp_async_arrive(bars + 8 * s);
+    ++ld_q;
+    ld_c0 += kChunk;
+    if (ld_c0 == block) {
+      ld_c0 = 0;
+      if (++ld_b == n_blocks) {
+        ld_b = 0;
+        if (++ld_m < my_items) set_load_item();
+      }
+    }
+  };
+  auto stage_ready = [&](int q) {
+    const int s = q % kStages;
+    mbar_wait(bars + 8 * s, (q / kStages) & 1);
+    return ring + s * S::kStageBytes;
   };
 
-  uint32_t ri[G::kWordsPerThread], rj[G::kWordsPerThread],
-      rw[G::kWordsPerThread];
-  if (n_chunks > 0)
-    load_chunk<Form>(side_ptr(bits_i, n8_i, ti, 0),
-                     side_ptr(bits_j, n8_j, tj, 0), limb_ptr(0), bw, ri, rj,
-                     rw);
+  uint32_t acc[G][64];
+  #pragma unroll
+  for (int l = 0; l < G; ++l)
+    #pragma unroll
+    for (int i = 0; i < 64; ++i) acc[l][i] = 0;
 
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    __syncthreads();  // previous chunk's products are done with smem
-    unpack_chunk<Form>(sa, sb, ri, rj, rw);
+  // out[limb, tile rows, tile cols] += acc for this CTA's item m, after
+  // all its products are done.  Accumulator element i of thread lane
+  // 4g + t in warp w of warpgroup h: row 64h + 16w + g + 8 (i/2 % 2),
+  // column 8 (i / 4) + 2t + i % 2.  The read-add-write is volatile asm that
+  // only reads the accumulators, so it stays after the wait and nothing
+  // outside the products defines them.
+  auto epilogue = [&](int m) {
+    const int it = blockIdx.x + m * gridDim.x;
+    const int pair = it % num_pairs;
+    const int limb = limb0 + G * (it / num_pairs);
+    const int lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = 16 * (tid / 32) + g;  // 64h + 16w + g
+    #pragma unroll
+    for (int l = 0; l < G; ++l) {
+      int32_t* tile = out + (long long)(limb + l) * npad_i * npad_j
+                      + (long long)(tile_i[pair] * kTile + row0) * npad_j
+                      + tile_j[pair] * kTile + 2 * t;
+      #pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        int32_t* p = tile + (long long)(8 * ((i / 2) % 2)) * npad_j + 8 * (i / 4);
+        asm volatile(
+            "{\n"
+            ".reg .s32 x, y;\n"
+            "ld.global.v2.s32 {x, y}, [%0];\n"
+            "add.s32 x, x, %1;\n"
+            "add.s32 y, y, %2;\n"
+            "st.global.v2.s32 [%0], {x, y};\n"
+            "}\n"
+            :: "l"(p), "r"(acc[l][i]), "r"(acc[l][i + 1]) : "memory");
+      }
+    }
+  };
+
+  uint32_t a0[kKSteps][G][4], a1[kKSteps][G][4];
+  if (total > 0) {
+    set_load_item();
+    for (int q = 0; q < kStages && q < total; ++q) issue();
+    const uint8_t* st = stage_ready(0);
+    unpack_b(st + kSideBytes, bbuf);
+    build_a<G>(st, a0);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
-    if (chunk + 1 < n_chunks)
-      load_chunk<Form>(side_ptr(bits_i, n8_i, ti, chunk + 1),
-                       side_ptr(bits_j, n8_j, tj, chunk + 1),
-                       limb_ptr(chunk + 1), bw, ri, rj, rw);
-    if constexpr (Form::kFlush) {
-      mma_chunk<Form>(sa, sb, wm, wn, part);
-      if ((chunk + 1) % chunks_per_block == 0)  // the block's last chunk
-        flush_block(part, acc, stage + warp * 256);
-    } else {
-      mma_chunk<Form>(sa, sb, wm, wn, acc);
-    }
   }
 
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  // Chunk q: its products are issued on B buffer q % 3 with A registers
+  // cur and stay in flight across the chunk barrier; once chunk q - 1's
+  // products are done (wait_group 1), chunk q + 1 is unpacked into B
+  // buffer (q + 1) % 3, last read by chunk q - 2, and built into nxt,
+  // chunk q - 1's A registers.  The last chunk of an item waits for all
+  // products and adds the accumulators into out.
+  int cm = 0, cc = 0;  // item and chunk of chunk q
+  auto step = [&](int q, uint32_t (&cur)[kKSteps][G][4],
+                  uint32_t (&nxt)[kKSteps][G][4]) {
+    const uint32_t b_addr = smem_u32(bbuf + (q % 3) * kBBytes);
+    const uint32_t first = cc == 0;  // an item's first chunk starts at 0
+    wgmma_fence();
     #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(
-          out_tile + (long long)(wm * 32 + m * 16) * npad_j + wn * 64 + n * 16,
-          acc[m][n], npad_j, wmma::mem_row_major);
+    for (int s = 0; s < kKSteps; ++s)
+      #pragma unroll
+      for (int l = 0; l < G; ++l)
+        wgmma_m64n128k32(acc[l], cur[s][l], desc_sw128(b_addr + 32 * s),
+                         s > 0 || !first);
+    wgmma_commit();
+    if (ld_q < total) issue();
+    wgmma_wait<1>();
+    fence_a<G>(nxt);
+    if (q + 1 < total) {
+      const uint8_t* st = stage_ready(q + 1);
+      unpack_b(st + kSideBytes, bbuf + ((q + 1) % 3) * kBBytes);
+      build_a<G>(st, nxt);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    if (q < total && ++cc == n_chunks) {
+      wgmma_wait<0>();
+      epilogue(cm);
+      cc = 0;
+      ++cm;
+    }
+    __syncthreads();
+  };
+
+  // Two steps a trip, both unconditional: a step under a condition makes
+  // the accumulators' values join from two paths, and ptxas then waits for
+  // the products at every chunk (C7517).  An odd count gets one step more,
+  // on stale operands, whose sums are never written out.
+  for (int q = 0; q < total; q += 2) {
+    step(q, a0, a1);
+    step(q + 1, a1, a0);
+  }
+  wgmma_wait<0>();
 }
 
-template <typename Form>
+template <int G>
 int launch(const void* bits_i, const void* bits_j, const void* wl,
            const void* tile_i, const void* tile_j, void* out, int num_pairs,
-           int n_blocks, int block, int n_limbs, int npad_i, int npad_j,
-           void* stream) {
-  if (num_pairs > 0 && n_limbs > 0) {
-    gram_tiles_kernel<Form><<<dim3(num_pairs, n_limbs), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(bits_i), static_cast<const uint8_t*>(bits_j),
-        static_cast<const int8_t*>(wl), static_cast<const int32_t*>(tile_i),
-        static_cast<const int32_t*>(tile_j), static_cast<int32_t*>(out),
-        n_blocks, block, n_limbs, npad_i / 8, npad_j / 8, npad_i, npad_j);
-  }
+           int n_groups, int limb0, int n_blocks, int block, int n_limbs,
+           int npad_i, int npad_j, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gram_int8_wgmma_kernel<G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<G>::kAlloc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = num_pairs * n_groups;
+  const int grid = items < sms ? items : sms;
+  gram_int8_wgmma_kernel<G><<<grid, kThreads, Smem<G>::kAlloc, stream>>>(
+      static_cast<const uint8_t*>(bits_i), static_cast<const uint8_t*>(bits_j),
+      static_cast<const int8_t*>(wl), static_cast<const int32_t*>(tile_i),
+      static_cast<const int32_t*>(tile_j), static_cast<int32_t*>(out),
+      num_pairs, n_groups, limb0, n_blocks, block, n_limbs, npad_i, npad_j);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,26 +461,27 @@ int launch(const void* bits_i, const void* bits_j, const void* wl,
 extern "C" {
 
 int ks_gram_tile() { return kTile; }
-int ks_gram_chunk() { return Int8Form::kChunk; }
-int ks_gram_chunk_bf16() { return Bf16Form::kChunk; }
+int ks_gram_chunk() { return kChunk; }
 
-// Each launches one CTA per (tile pair, limb).  Shapes are checked by the
-// Python wrapper; returns cudaGetLastError() so a refused launch is not
+// Pairs of limbs go to the two-accumulator kernel, an odd last limb to the
+// one-accumulator kernel (a second launch).  Shapes are checked by the
+// Python wrapper; returns the first CUDA error, so a refused launch is not
 // silent.
 int ks_gram_int8_tiles(const void* bits_i, const void* bits_j, const void* wl,
                        const void* tile_i, const void* tile_j, void* out,
                        int num_pairs, int n_blocks, int block, int n_limbs,
                        int npad_i, int npad_j, void* stream) {
-  return launch<Int8Form>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs,
-                          n_blocks, block, n_limbs, npad_i, npad_j, stream);
-}
-
-int ks_gram_bf16_tiles(const void* bits_i, const void* bits_j, const void* wl,
-                       const void* tile_i, const void* tile_j, void* out,
-                       int num_pairs, int n_blocks, int block, int n_limbs,
-                       int npad_i, int npad_j, void* stream) {
-  return launch<Bf16Form>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs,
-                          n_blocks, block, n_limbs, npad_i, npad_j, stream);
+  if (num_pairs <= 0 || n_limbs <= 0 || n_blocks <= 0 || block < kChunk)
+    return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  if (n_limbs >= 2)
+    rc = launch<2>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs,
+                   n_limbs / 2, 0, n_blocks, block, n_limbs, npad_i, npad_j, st);
+  if (rc == 0 && n_limbs % 2)
+    rc = launch<1>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs, 1,
+                   n_limbs - 1, n_blocks, block, n_limbs, npad_i, npad_j, st);
+  return rc;
 }
 
 }  // extern "C"

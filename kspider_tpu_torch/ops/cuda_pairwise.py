@@ -6,16 +6,16 @@ strips) compute the same per-tile sum
 
     acc_l[i, j] = sum_c bit[c, i] * w_l[c] * bit[c, j]
 
-and become one CUDA kernel (``csrc/gram_int8.cu``) driven by a list of
-output tile pairs: "all tiles" of a rectangle covers the square and
+and become one CUDA kernel per ``compute_dtype`` form, driven by a list
+of output tile pairs: "all tiles" of a rectangle covers the square and
 rectangle kernels, "upper tiles" of one panel covers the triangle kernel
 and, after ``mirror_upper_tiles``, the symmetric one.
 
-Both ``compute_dtype`` forms of the Pallas kernels are ported:
-``torch.int8`` (the default: int8 products into int32) and
-``torch.bfloat16`` (bf16 operands, float32 partial sums inside one color
-block, each block's sum added into int32).  Both are exact; no CLI path
-sets bf16, as in kspider_tpu.
+Both forms of the Pallas kernels are ported: ``torch.int8`` (the default,
+every CLI path: ``csrc/gram_int8.cu``, wgmma s8 products into int32) and
+``torch.bfloat16`` (``csrc/gram_bf16.cu``, bf16 operands, float32 partial
+sums inside one color block, each block's sum added into int32).  Both
+are exact; no CLI path sets bf16, as in kspider_tpu.
 
 Inputs keep the JAX package's transposed layout, colors contiguous:
 ``bits_t u8[NB, n_pad/8, block]`` (MSB-first) and ``wl_t i8[NB, L, block]``.
@@ -32,10 +32,10 @@ from kspider_tpu_torch.device import resolve_device
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import pairwise as pw
 
-#: output tile edge of the CUDA kernel (``kTile`` in csrc/gram_int8.cu)
+#: output tile edge of the CUDA kernels (``kTile`` in csrc/gram_int8.cu)
 TILE = 128
-#: colors per chunk of the kernel's int8 form (``Int8Form::kChunk``); the
-#: bf16 form's is 64
+#: colors per chunk of the int8 kernel (``kChunk`` in csrc/gram_int8.cu);
+#: the bf16 kernel's is 64
 CHUNK = 128
 #: colors per color block; the kernel needs a multiple of its chunk
 BLOCK = 1024

@@ -216,7 +216,7 @@ def shared_kmer_matrix(
 ) -> np.ndarray:
     """Exact shared-k-mer matrix S (int64, NxN, symmetric, zero diagonal).
 
-    Input is the color-class CSR of :class:`kspider_tpu.core.index.ColorIndex`:
+    Input is the color-class CSR of :class:`kspider_tpu_torch.core.index.ColorIndex`:
     ``members[offsets[c]:offsets[c+1]]`` lists the 0-based sample ids of
     color ``c`` and ``weights[c]`` its k-mer count.  ``device`` is one
     device or a device list (``parallel/mesh.make_mesh``).  ``engine`` (one

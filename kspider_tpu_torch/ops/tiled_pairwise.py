@@ -314,7 +314,7 @@ def _pack_panel_side(
     the JAX package, which writes the transposed layout directly; a failure
     is reported by ``native.report_fallback`` (an error under
     ``KSPIDER_NATIVE=force``) and the numpy packer takes over."""
-    from kspider_tpu.io import native
+    from kspider_tpu_torch.io import native
 
     if native.enabled():
         try:

@@ -124,7 +124,7 @@ def color_slice(
 def _local_partial_from_slice(index, lo: int, hi: int, device,
                               engine: str = "auto"):
     """Partial shared matrix from a contiguous color-class slice."""
-    from kspider_tpu.core.index import ColorIndex
+    from kspider_tpu_torch.core.index import ColorIndex
     from kspider_tpu_torch.core.pairwise import compute_shared_matrix
 
     off = index.color_offsets
@@ -144,7 +144,7 @@ def _local_partial_from_slice(index, lo: int, hi: int, device,
 
 
 def _load_index(prefix: str):
-    from kspider_tpu.io import artifacts, npz_index
+    from kspider_tpu_torch.io import artifacts, npz_index
 
     index = npz_index.load(prefix)
     return artifacts.load_index_artifacts(prefix) if index is None else index
@@ -402,7 +402,7 @@ def distributed_pairwise_from_hash_sets(
     ``device`` (None: the numpy engine), and one ``all_reduce`` gives the
     exact global matrix; process 0 writes the TSVs.  The true per-group
     k-mer totals are passed through so the containments are exact."""
-    from kspider_tpu.core.index import build_index_from_hash_sets
+    from kspider_tpu_torch.core.index import build_index_from_hash_sets
     from kspider_tpu_torch.core import pairwise as core_pairwise
 
     device = rank_device(device)

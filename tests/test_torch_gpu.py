@@ -2,9 +2,8 @@
 port's other device paths, on the card.
 
 Every case is marked ``gpu`` and skips without a CUDA card.  The file
-imports neither jax nor kspider_tpu's jax modules, so it also runs on a
-machine without jax (``tests/conftest.py`` imports jax, hence
-``--noconftest``):
+imports neither jax nor kspider_tpu, so it also runs on a machine without
+jax (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
@@ -67,21 +66,33 @@ def run(bits_i, bits_j, wl, ti, tj, npad_i, npad_j, device,
     return out.cpu().numpy()
 
 
-def mode_args(mode, max_weight, block):
-    bits_i, wl_t = packed(max_weight, 1500, 250, 256, max_weight, block)
-    bits_j, _ = packed(max_weight + 1, 1500, 380, 384, max_weight, block)
+def mode_args(mode, max_weight, block, n_i=250, n_j=380):
+    """Inputs of one launch mode: samples padded to whole 128-wide tiles;
+    "list" is every tile of the rectangle in a shuffled order."""
+    pad_i, pad_j = -(-n_i // 128) * 128, -(-n_j // 128) * 128
+    bits_i, wl_t = packed(max_weight, 1500, n_i, pad_i, max_weight, block)
+    bits_j, _ = packed(max_weight + 1, 1500, n_j, pad_j, max_weight, block)
     if mode == "square":
-        return (bits_i, bits_i, wl_t, *cp.all_tiles(2, 2), 256, 256)
-    if mode == "rect":
-        return (bits_i, bits_j, wl_t, *cp.all_tiles(2, 3), 256, 384)
-    return (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(3), 384, 384)
+        return (bits_i, bits_i, wl_t, *cp.all_tiles(pad_i // 128, pad_i // 128),
+                pad_i, pad_i)
+    if mode in ("rect", "list"):
+        ti, tj = cp.all_tiles(pad_i // 128, pad_j // 128)
+        if mode == "list":
+            order = np.random.default_rng(n_i + n_j).permutation(len(ti))
+            ti, tj = ti[order], tj[order]
+        return (bits_i, bits_j, wl_t, ti, tj, pad_i, pad_j)
+    return (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(pad_j // 128),
+            pad_j, pad_j)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["square", "rect", "upper"])
+@pytest.mark.parametrize("mode", ["square", "rect", "upper", "list"])
 @pytest.mark.parametrize("max_weight,block", [(127, 128), (16000, 1024), (40000, 256)])
-def test_kernel_matches_plain(cuda_device, mode, max_weight, block):
-    args = mode_args(mode, max_weight, block)
+@pytest.mark.parametrize("n_i,n_j", [(250, 380), (1000, 130), (129, 700)])
+def test_kernel_matches_plain(cuda_device, mode, max_weight, block, n_i, n_j):
+    """L = 1, 2, 3 (max_weight 127, 16000, 40000) at ragged sample counts."""
+    args = mode_args(mode, max_weight, block, n_i, n_j)
+    assert args[2].shape[1] == {127: 1, 16000: 2, 40000: 3}[max_weight]
     before = cp.LAUNCHES
     got = run(*args, device=cuda_device)
     torch.cuda.synchronize()
@@ -227,8 +238,8 @@ def test_compact_multi_postings_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_build_index_device_on_card_equals_host(cuda_device):
-    from kspider_tpu.core.index import build_index_from_hash_sets
-    from kspider_tpu_torch.core.index import build_index_device
+    from kspider_tpu_torch.core.index import (build_index_device,
+                                              build_index_from_hash_sets)
 
     rng = np.random.default_rng(23)
     universe = np.unique(rng.integers(0, 2**64 - 1, size=20000, dtype=np.uint64,

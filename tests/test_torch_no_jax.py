@@ -1,6 +1,9 @@
-"""kspider_tpu_torch never imports jax.
+"""kspider_tpu_torch never imports jax, nor the JAX package kspider_tpu.
 
 Runs in a subprocess because tests/conftest.py imports jax into this one.
+The script drives index, pairwise (every engine), cluster, the fused step
+and the sharded engine with the port's modules only, then checks that no
+``jax`` and no ``kspider_tpu`` module was loaded.
 """
 
 import os
@@ -15,8 +18,8 @@ import numpy as np
 import torch
 import kspider_tpu_torch
 from kspider_tpu_torch.cli.main import cli  # registers every command
-from kspider_tpu.core.index import build_index_from_hash_sets
-from kspider_tpu.io import artifacts
+from kspider_tpu_torch.core.index import build_index_from_hash_sets
+from kspider_tpu_torch.io import artifacts
 from kspider_tpu_torch.core import cluster, pairwise
 
 rng = np.random.default_rng(0)
@@ -43,7 +46,7 @@ with open(cluster.cluster_from_index(index, prefix, 0.3, device="cpu",
     assert f.read() == "s0,s2,s4\ns1,s3,s5\n"
 # every engine name, and the device index build through the CLI
 from click.testing import CliRunner
-from kspider_tpu.io import phmap
+from kspider_tpu_torch.io import phmap
 for engine in ("bitmask", "pallas", "scatter"):
     assert pairwise.run_pairwise(prefix, device="cpu", engine=engine,
                                  echo_timers=False) is not None
@@ -83,6 +86,9 @@ assert np.array_equal(m, pw.shared_kmer_matrix_numpy(
 assert multiprocess.initialize() == distributed.process_info() == (0, 1)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
+tpu_mods = sorted(m for m in sys.modules
+                  if m == "kspider_tpu" or m.startswith("kspider_tpu."))
+assert not tpu_mods, tpu_mods
 print("NO_JAX_OK")
 """
 
