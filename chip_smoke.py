@@ -9,14 +9,17 @@ Phases, each printed on its own line; any failure exits non-zero:
 2. build: compiles the Gram kernel from ``kspider_tpu_torch/csrc`` with nvcc;
 3. kernel vs plain: every launch mode of the kernel (all tiles of a
    square, all tiles of a rectangle with distinct sides, upper tiles, and a
-   shuffled list of tiles) at the dense path's shapes and at small ragged
-   ones with L = 1, 2, 3, in both forms (int8 ``csrc/gram_int8.cu``, bf16
-   ``csrc/gram_bf16.cu``), bit-exact int32 against the plain torch version
-   of each form.  Each case prints the kernel's ms and the plain
-   version's (CUDA events), its bound ms (operations over the tensor peak
-   of the form, or bytes over the memory rate, whichever is larger) and
-   the ms of one ``torch._int_mm`` on the unpacked operands (the library
-   yardstick, timed here and never called by the port);
+   shuffled list of tiles) at the dense path's shapes and at
+   ``gram_bench.RAGGED``'s small ragged ones (L = 1-4, each in every mode
+   of ``gram_bench.MODES``), in both forms (int8 ``csrc/gram_int8.cu``,
+   bf16 ``csrc/gram_bf16.cu``), bit-exact int32 against the plain torch
+   version of each form.  Each case prints ``gram_bench.measure``'s
+   numbers: the kernel's ms and the plain version's (CUDA events), its
+   bound ms (operations over the tensor peak of the form, or bytes over
+   the memory rate, whichever is larger) and the ms of one
+   ``torch._int_mm`` on the unpacked operands (the library yardstick,
+   timed here and never called by the port).  The phase prints its own
+   time, split into the path's shapes and the ragged ones per form;
 4. dense path: a synthetic genus-scale index (F families of 8 samples,
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
    and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
@@ -66,7 +69,9 @@ Neither jax nor kspider_tpu may have been imported.  Launch counts are
 reset to 0 right before each path and read right after it.  The line
 before the last is a JSON object describing the kernel's two forms (time,
 plain time, bound and library time at the path's shapes, launches per
-path); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+path); its ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are those
+of the tiled off-diagonal pair, and ``by_shape`` holds every path shape's.
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 card the script exits 1 and prints no result.
 """
 
@@ -176,48 +181,23 @@ def make_index(rng, n_families, prefix):
     return index, names, arrays, host_build_s
 
 
-def compare_mode(cp, label, bits_i, bits_j, wl, ti, tj, npad_i, npad_j, reps,
+def compare_mode(label, bits_i, bits_j, wl, ti, tj, reps,
                  compute_dtype=torch.int8, library_ms=None):
-    """Kernel vs plain on one launch mode of one form; returns a dict of
-    max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms (one
-    ``torch._int_mm`` of the unpacked operands, timed unless given)."""
+    """Kernel vs plain on one launch mode of one form (``gram_bench.measure``:
+    plain timed over max(1, reps // 5) calls); prints and returns its dict
+    of max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms."""
     from kspider_tpu_torch import gram_bench as gb
 
-    n_limbs = wl.shape[1]
-    dev = bits_i.device
-
-    def run(fn):
-        out = torch.zeros((n_limbs, npad_i, npad_j), dtype=torch.int32, device=dev)
-        fn(bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out,
-           compute_dtype=compute_dtype)
-        return out
-
-    out_k = run(cp.cooccurrence_tiles)
-    out_p = run(cp.cooccurrence_tiles_plain)
-    torch.cuda.synchronize()
-    err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
-    del out_k, out_p
-    ms = gb.cuda_ms(lambda: run(cp.cooccurrence_tiles), reps)
-    plain_ms = gb.cuda_ms(lambda: run(cp.cooccurrence_tiles_plain), max(1, reps // 5))
-    ops = gb.gram_ops(len(ti), bits_i.shape[0] * bits_i.shape[2], n_limbs)
-    out_meta = torch.empty((n_limbs, npad_i, npad_j), dtype=torch.int32,
-                           device="meta")
-    bound_ms, bound_by = gb.bound(
-        ops, gb.gram_bytes(bits_i, bits_j, wl, out_meta),
-        gb.INT8_OPS_PER_S if compute_dtype == torch.int8 else gb.BF16_OPS_PER_S)
-    if library_ms is None:
-        lhs, rhs = gb.int_mm_operands(bits_i, bits_j, wl)
-        library_ms = gb.cuda_ms(lambda: torch._int_mm(lhs, rhs), reps)
-        del lhs, rhs
-        torch.cuda.empty_cache()
+    r = gb.measure(bits_i, bits_j, wl, ti, tj, reps, compute_dtype=compute_dtype,
+                   plain_reps=max(1, reps // 5), library_ms=library_ms)
     print(f"  {label} [{str(compute_dtype)[6:]}]: NB={bits_i.shape[0]} "
-          f"npad={npad_i}x{npad_j} "
-          f"block={bits_i.shape[2]} L={n_limbs} pairs={len(ti)} "
-          f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}, share {bound_ms / ms:.3f}) "
-          f"library_ms={library_ms:.4f}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+          f"npad={8 * bits_i.shape[1]}x{8 * bits_j.shape[1]} "
+          f"block={bits_i.shape[2]} L={wl.shape[1]} pairs={len(ti)} "
+          f"max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}) "
+          f"library_ms={r['library_ms']:.4f}", flush=True)
+    return r
 
 
 def reset_counts(cp):
@@ -700,6 +680,7 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(1)
+    from kspider_tpu_torch import gram_bench as gb
     from kspider_tpu_torch.ops import _build
     from kspider_tpu_torch.ops import cuda_pairwise as cp
 
@@ -757,46 +738,49 @@ def main():
     bits_a = bits[:, :half].contiguous()
     bits_b = bits[:, half:].contiguous()
     nt = n_pad // cp.TILE
-    results = []
-    modes = [
-        ("upper tiles (dense path)", bits, bits, wl, *cp.upper_triangle_tiles(nt), n_pad, n_pad, 5),
-        ("all tiles, square", bits, bits, wl, *cp.all_tiles(nt, nt), n_pad, n_pad, 5),
-        ("all tiles, rect", bits_a, bits_b, wl, *cp.all_tiles(nt // 2, nt - nt // 2),
-         8 * half, n_pad - 8 * half, 5),
+    path_modes = [
+        ("upper tiles (dense path)", bits, bits, wl, *cp.upper_triangle_tiles(nt), 5),
+        ("all tiles, square", bits, bits, wl, *cp.all_tiles(nt, nt), 5),
+        ("all tiles, rect", bits_a, bits_b, wl, *cp.all_tiles(nt // 2, nt - nt // 2), 5),
     ]
-    # ragged shapes, L = 1, 2, 3 (two limbs a launch, an odd limb alone).
-    # The first four draw from the collections' stream, so the N = 32,768
-    # collection stays what earlier runs measured; later cases draw apart.
+    # gram_bench's ragged shapes (L = 1-4) in each of its modes.  The first
+    # four shapes draw from the collections' stream, as they always have,
+    # so the N = 32,768 collection stays what earlier runs measured; the
+    # rest and the shuffled orders draw apart.
     extra = np.random.default_rng(args.seed + 1)
-    for k, (nb, npad_i, npad_j, block, L) in enumerate(
-            [(1, 128, 128, 128, 1), (1, 256, 384, 128, 2), (1, 384, 384, 1024, 3),
-             (3, 640, 256, 256, 2), (5, 384, 640, 128, 3), (2, 1152, 896, 640, 1)]):
-        r = rng if k < 4 else extra
-        bi = torch.from_numpy(r.integers(0, 256, (nb, npad_i // 8, block), dtype=np.uint8)).to(dev)
-        bj = torch.from_numpy(r.integers(0, 256, (nb, npad_j // 8, block), dtype=np.uint8)).to(dev)
-        w = torch.from_numpy(r.integers(0, 128, (nb, L, block), dtype=np.int8)).to(dev)
-        ti_, tj_ = npad_i // 128, npad_j // 128
-        shuffled = extra.permutation(ti_ * tj_)
-        li, lj = (a[shuffled] for a in cp.all_tiles(ti_, tj_))
-        modes.append((f"all tiles, rect, small, L={L}", bi, bj, w, *cp.all_tiles(ti_, tj_), npad_i, npad_j, 20))
-        modes.append((f"all tiles, square, small, L={L}", bi, bi, w, *cp.all_tiles(ti_, ti_), npad_i, npad_i, 20))
-        modes.append((f"upper tiles, small, L={L}", bi, bi, w, *cp.upper_triangle_tiles(ti_), npad_i, npad_i, 20))
-        modes.append((f"shuffled list, rect, small, L={L}", bi, bj, w, li, lj, npad_i, npad_j, 20))
-    for label, *rest in modes:
-        results.append(compare_mode(cp, label, *rest))
+    ragged_modes = []
+    for k, shape in enumerate(gb.RAGGED):
+        bi, bj, w = gb.ragged_inputs(shape, rng if k < 4 else extra, dev)
+        for mode in gb.MODES:
+            mi, mj, ti_, tj_ = gb.mode_tiles(mode, bi, bj, extra)
+            ragged_modes.append((f"{mode}, small, L={shape[4]}", mi, mj, w,
+                                 ti_, tj_, 20))
+    phase3_s = {}
+    results = []
+    for name, cases in (("path", path_modes), ("ragged", ragged_modes)):
+        t0 = time.perf_counter()
+        results += [compare_mode(label, *rest) for label, *rest in cases]
+        phase3_s[f"int8 {name}"] = time.perf_counter() - t0
     max_err = max(r["max_abs_err"] for r in results)
     dense_row, square_row, rect_row = results[:3]
     phase("kernel vs plain", max_err == 0,
           f"{len(results)} cases, max_abs_err={max_err} (exact int32 required)")
-    results_bf16 = [compare_mode(cp, label, *rest, compute_dtype=torch.bfloat16,
-                                 library_ms=r["library_ms"])
-                    for (label, *rest), r in zip(modes, results)]
+    results_bf16 = []
+    for name, cases, done in (("path", path_modes, results[:3]),
+                              ("ragged", ragged_modes, results[3:])):
+        t0 = time.perf_counter()
+        results_bf16 += [compare_mode(label, *rest, compute_dtype=torch.bfloat16,
+                                      library_ms=r["library_ms"])
+                         for (label, *rest), r in zip(cases, done)]
+        phase3_s[f"bf16 {name}"] = time.perf_counter() - t0
     max_err_bf16 = max(r["max_abs_err"] for r in results_bf16)
-    del bits, wl, bits_a, bits_b, modes
+    del bits, wl, bits_a, bits_b, path_modes, ragged_modes
     torch.cuda.empty_cache()
     phase("bf16 kernel vs plain", max_err_bf16 == 0,
           f"{len(results_bf16)} cases, max_abs_err={max_err_bf16} "
           "(exact int32 required)")
+    print(f"[phase 3] {sum(phase3_s.values()):.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phase3_s.items()), flush=True)
 
     # ---- 4. dense path --------------------------------------------------
     launches = {}
@@ -931,11 +915,9 @@ def main():
         nt = panel_pad // cp.TILE
         tiles = cp.upper_triangle_tiles(nt) if bj is bi else cp.all_tiles(nt, nt)
         mode = "upper" if bj is bi else "all"
-        tiled_modes[mode] = compare_mode(
-            cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5)
+        tiled_modes[mode] = compare_mode(label, bi, bj, wl_t, *tiles, 5)
         tiled_modes_bf16[mode] = compare_mode(
-            cp, label, bi, bj, wl_t, *tiles, panel_pad, panel_pad, 5,
-            compute_dtype=torch.bfloat16,
+            label, bi, bj, wl_t, *tiles, 5, compute_dtype=torch.bfloat16,
             library_ms=tiled_modes[mode]["library_ms"])
         del bi, bj, wl_t
     torch.cuda.empty_cache()
@@ -1010,9 +992,10 @@ def main():
           + f"; rank 0: {merge_line or 'no merge line'}", flush=True)
     def kernel_entry(name, compute_dtype, launches_total, err, rows):
         """The kernel's JSON entry: its time, plain time, bound and library
-        time at the dense path's shape (the main path), and every number
-        by shape."""
-        main = rows["dense_upper"]
+        time at the tiled path's off-diagonal pair (``tiled_all``, the
+        shape these fields have always been read at), and every number by
+        shape."""
+        main = rows["tiled_all"]
         return {
             "name": name,
             "route": "cuda",

@@ -44,17 +44,22 @@
 //    flight across the chunk barrier (wgmma.wait_group 1), while the CTA
 //    unpacks chunk k+1's B into the third of three B buffers and builds its
 //    A fragments into the register set chunk k-1 used.
-//  - persistence: one CTA per SM walks (tile pair, limb group) items; the
-//    ring runs on across items, so the next item's loads overlap this
-//    item's epilogue (out += acc, int32 read-add-write).
-//  - limbs two at a time (2 x 64 int32 accumulators per thread); an odd
-//    last limb is a second launch with one accumulator.
+//  - persistence: one launch, one CTA per SM.  A CTA walks its tile pairs
+//    and, inside each pair, its limb groups: limbs two at a time (2 x 64
+//    int32 accumulators per thread), then, for an odd L, a second pass over
+//    its pairs for the last limb with one accumulator.  The ring runs on
+//    across items and passes, so the next item's loads overlap this item's
+//    epilogue (out += acc, int32 read-add-write).
+//  - every limb group streams and unpacks the packed bits again.  Sharing
+//    one unpacked B across more than two limbs would need all their
+//    accumulators at once: 64 KB per limb of a 128 x 128 tile, so L = 3 is
+//    192 of a thread's 255 registers before any A fragment.
 //
 // On an H100 (700 W) this reaches 53-56% of the int8 bound at the main
 // path's shapes.  What holds it there is shared memory, shared by the
 // products' B reads (64 KB a chunk at L = 2) and the unpack and A build;
 // a deeper product queue needs a third A register set, which does not fit
-// beside 128 accumulators (248 of 255 registers).
+// beside 128 accumulators (246 of 255 registers).
 //
 // Exactness: a limb term is at most 127 per color and the caller bounds the
 // colors per accumulation (_MAX_COLORS_PER_CALL), so int32 never wraps.
@@ -74,15 +79,11 @@ constexpr int kBBytes = kTile * kChunk;           // unpacked B of one chunk
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes): three B buffers, the ring of
-// packed stages (i bits, j bits, G limb rows), one mbarrier per stage.
-template <int G>
-struct Smem {
-  static constexpr int kStageBytes = 2 * kSideBytes + G * kChunk;
-  static constexpr int kRing = 3 * kBBytes;
-  static constexpr int kBars = kRing + kStages * kStageBytes;
-  static constexpr int kBytes = kBars + kStages * 8;
-  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
-};
+// packed stages (i bits, j bits, two limb rows), one mbarrier per stage.
+constexpr int kStageBytes = 2 * kSideBytes + 2 * kChunk;
+constexpr int kRing = 3 * kBBytes;
+constexpr int kBars = kRing + kStages * kStageBytes;
+constexpr int kSmemAlloc = kBars + kStages * 8 + 1024;  // room to align
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -254,83 +255,77 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[kKSteps][G][4]) {
     for (int l = 0; l < G; ++l) fence_regs(a[s][l]);
 }
 
-// Items: (tile pair, limb group) = (it % num_pairs, it / num_pairs); limb
-// group grp covers limbs limb0 + G grp .. + G - 1.  Launch with gridDim.x
-// <= items and Smem<G>::kAlloc bytes of dynamic shared memory.
+// A launch's arguments.  bits_j may equal bits_i; out is read and written.
+struct Args {
+  const uint8_t* bits_i;
+  const uint8_t* bits_j;
+  const int8_t* wl;
+  const int32_t* tile_i;
+  const int32_t* tile_j;
+  int32_t* out;
+  int num_pairs, n_blocks, block, n_limbs, npad_i, npad_j;
+};
+
+// One pass of a CTA over its tile pairs blockIdx.x, + gridDim.x, ..., each
+// pair's n_groups groups of G limbs in turn (group g: limbs limb0 + G g
+// .. + G - 1).  Item m of the pass is (pair m / n_groups, group
+// m % n_groups).  The pass streams its chunks through the ring from ring
+// position q0 (which sets each stage's slot and mbarrier parity) and
+// returns the position after it.
 template <int G>
-__global__ void __launch_bounds__(kThreads, 1)
-gram_int8_wgmma_kernel(const uint8_t* __restrict__ bits_i,
-                       const uint8_t* __restrict__ bits_j,
-                       const int8_t* __restrict__ wl,
-                       const int32_t* __restrict__ tile_i,
-                       const int32_t* __restrict__ tile_j,
-                       int32_t* __restrict__ out,
-                       int num_pairs, int n_groups, int limb0, int n_blocks,
-                       int block, int n_limbs, int npad_i, int npad_j) {
-  using S = Smem<G>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* bbuf = smem;
-  uint8_t* ring = smem + S::kRing;
-  const uint32_t ring_u32 = smem_u32(ring);
-  const uint32_t bars = smem_u32(smem + S::kBars);
-
+__device__ __forceinline__ int gram_pass(const Args& a, uint8_t* bbuf,
+                                         const uint8_t* ring, uint32_t bars,
+                                         int n_groups, int limb0, int q0) {
   const int tid = threadIdx.x;
-  const int n_items = num_pairs * n_groups;
-  const int my_items = (n_items - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int n_chunks = n_blocks * (block / kChunk);
-  const int total = my_items * n_chunks;  // chunks this CTA streams
-  const int n8_i = npad_i / 8, n8_j = npad_j / 8;
-
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, kThreads);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  const int my_pairs = (a.num_pairs - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int n_chunks = a.n_blocks * (a.block / kChunk);
+  const int total = my_pairs * n_groups * n_chunks;  // chunks of this pass
+  const int n8_i = a.npad_i / 8, n8_j = a.npad_j / 8;
+  const uint32_t ring_u32 = smem_u32(ring);
+  auto pair_of = [&](int m) { return blockIdx.x + (m / n_groups) * gridDim.x; };
+  auto limb_of = [&](int m) { return limb0 + G * (m % n_groups); };
 
   // The load cursor: the next chunk to copy is chunk (ld_b, ld_c0) of this
-  // CTA's item ld_m.  Piece tid of a stage (16 bytes) is byte row tid / 8
+  // pass's item ld_m.  Piece tid of a stage (16 bytes) is byte row tid / 8
   // (rows 0..15 the i side, 16..31 the j side), bytes 16 (tid % 8) ..;
   // threads below 8 G also copy piece tid of the G limb rows.
   const int my_row = tid / 8, my_col = 16 * (tid % 8);
-  const uint8_t* side = my_row < 16 ? bits_i : bits_j;
+  const uint8_t* side = my_row < 16 ? a.bits_i : a.bits_j;
   const int side_n8 = my_row < 16 ? n8_i : n8_j;
-  const int32_t* side_tiles = my_row < 16 ? tile_i : tile_j;
+  const int32_t* side_tiles = my_row < 16 ? a.tile_i : a.tile_j;
   int ld_q = 0, ld_m = 0, ld_b = 0, ld_c0 = 0;
   long long ld_row = 0;  // this thread's byte row of block 0 of item ld_m
   int ld_limb = 0;
   auto set_load_item = [&]() {
-    const int it = blockIdx.x + ld_m * gridDim.x;
-    const int pair = it % num_pairs;
-    ld_row = side_tiles[pair] * (kTile / 8) + (my_row % 16);
-    ld_limb = limb0 + G * (it / num_pairs);
+    ld_row = side_tiles[pair_of(ld_m)] * (kTile / 8) + (my_row % 16);
+    ld_limb = limb_of(ld_m);
   };
   // copies the next chunk into its stage, arrives once on the stage's
   // mbarrier, and advances the cursor
   auto issue = [&]() {
-    const int s = ld_q % kStages;
-    const uint32_t stage = ring_u32 + s * S::kStageBytes;
+    const int s = (q0 + ld_q) % kStages;
+    const uint32_t stage = ring_u32 + s * kStageBytes;
     cp_async16(stage + 16 * tid,
-               side + ((long long)ld_b * side_n8 + ld_row) * block + ld_c0 + my_col);
+               side + ((long long)ld_b * side_n8 + ld_row) * a.block + ld_c0 + my_col);
     if (tid < 8 * G)
       cp_async16(stage + 2 * kSideBytes + 16 * tid,
-                 wl + ((long long)ld_b * n_limbs + ld_limb + tid / 8) * block
+                 a.wl + ((long long)ld_b * a.n_limbs + ld_limb + tid / 8) * a.block
                     + ld_c0 + my_col);
     cp_async_arrive(bars + 8 * s);
     ++ld_q;
     ld_c0 += kChunk;
-    if (ld_c0 == block) {
+    if (ld_c0 == a.block) {
       ld_c0 = 0;
-      if (++ld_b == n_blocks) {
+      if (++ld_b == a.n_blocks) {
         ld_b = 0;
-        if (++ld_m < my_items) set_load_item();
+        if (++ld_m < my_pairs * n_groups) set_load_item();
       }
     }
   };
   auto stage_ready = [&](int q) {
-    const int s = q % kStages;
-    mbar_wait(bars + 8 * s, (q / kStages) & 1);
-    return ring + s * S::kStageBytes;
+    const int s = (q0 + q) % kStages;
+    mbar_wait(bars + 8 * s, ((q0 + q) / kStages) & 1);
+    return ring + s * kStageBytes;
   };
 
   uint32_t acc[G][64];
@@ -339,27 +334,26 @@ gram_int8_wgmma_kernel(const uint8_t* __restrict__ bits_i,
     #pragma unroll
     for (int i = 0; i < 64; ++i) acc[l][i] = 0;
 
-  // out[limb, tile rows, tile cols] += acc for this CTA's item m, after
-  // all its products are done.  Accumulator element i of thread lane
-  // 4g + t in warp w of warpgroup h: row 64h + 16w + g + 8 (i/2 % 2),
-  // column 8 (i / 4) + 2t + i % 2.  The read-add-write is volatile asm that
-  // only reads the accumulators, so it stays after the wait and nothing
-  // outside the products defines them.
+  // out[limb, tile rows, tile cols] += acc for item m, after all its
+  // products are done.  Accumulator element i of thread lane 4g + t in warp
+  // w of warpgroup h: row 64h + 16w + g + 8 (i/2 % 2), column 8 (i / 4) +
+  // 2t + i % 2.  The read-add-write is volatile asm that only reads the
+  // accumulators, so it stays after the wait and nothing outside the
+  // products defines them.
   auto epilogue = [&](int m) {
-    const int it = blockIdx.x + m * gridDim.x;
-    const int pair = it % num_pairs;
-    const int limb = limb0 + G * (it / num_pairs);
+    const int pair = pair_of(m);
+    const int limb = limb_of(m);
     const int lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int row0 = 16 * (tid / 32) + g;  // 64h + 16w + g
     #pragma unroll
     for (int l = 0; l < G; ++l) {
-      int32_t* tile = out + (long long)(limb + l) * npad_i * npad_j
-                      + (long long)(tile_i[pair] * kTile + row0) * npad_j
-                      + tile_j[pair] * kTile + 2 * t;
+      int32_t* tile = a.out + (long long)(limb + l) * a.npad_i * a.npad_j
+                      + (long long)(a.tile_i[pair] * kTile + row0) * a.npad_j
+                      + a.tile_j[pair] * kTile + 2 * t;
       #pragma unroll
       for (int i = 0; i < 64; i += 2) {
-        int32_t* p = tile + (long long)(8 * ((i / 2) % 2)) * npad_j + 8 * (i / 4);
+        int32_t* p = tile + (long long)(8 * ((i / 2) % 2)) * a.npad_j + 8 * (i / 4);
         asm volatile(
             "{\n"
             ".reg .s32 x, y;\n"
@@ -429,30 +423,47 @@ gram_int8_wgmma_kernel(const uint8_t* __restrict__ bits_i,
     step(q, a0, a1);
     step(q + 1, a1, a0);
   }
+  // every warpgroup's products are done before the next pass unpacks
   wgmma_wait<0>();
+  __syncthreads();
+  return q0 + total;
 }
 
-template <int G>
-int launch(const void* bits_i, const void* bits_j, const void* wl,
-           const void* tile_i, const void* tile_j, void* out, int num_pairs,
-           int n_groups, int limb0, int n_blocks, int block, int n_limbs,
-           int npad_i, int npad_j, cudaStream_t stream) {
+// Launch with gridDim.x <= num_pairs and kSmemAlloc bytes of dynamic
+// shared memory: limbs in pairs, then an odd last limb alone.  L = 1 has an
+// instantiation of its own (kPairs false): compiled beside the two-limb
+// pass, the one-limb pass ran 8-9% slower on an H100 (700 W).
+template <bool kPairs>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_int8_wgmma_kernel(const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + kBars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int q = 0;
+  if (kPairs)
+    q = gram_pass<2>(a, smem, smem + kRing, bars, a.n_limbs / 2, 0, q);
+  if (a.n_limbs % 2)
+    gram_pass<1>(a, smem, smem + kRing, bars, 1, a.n_limbs - 1, q);
+}
+
+template <bool kPairs>
+int launch(const Args& a, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gram_int8_wgmma_kernel<G>,
+    err = cudaFuncSetAttribute(gram_int8_wgmma_kernel<kPairs>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<G>::kAlloc);
+                               kSmemAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int items = num_pairs * n_groups;
-  const int grid = items < sms ? items : sms;
-  gram_int8_wgmma_kernel<G><<<grid, kThreads, Smem<G>::kAlloc, stream>>>(
-      static_cast<const uint8_t*>(bits_i), static_cast<const uint8_t*>(bits_j),
-      static_cast<const int8_t*>(wl), static_cast<const int32_t*>(tile_i),
-      static_cast<const int32_t*>(tile_j), static_cast<int32_t*>(out),
-      num_pairs, n_groups, limb0, n_blocks, block, n_limbs, npad_i, npad_j);
+  const int grid = a.num_pairs < sms ? a.num_pairs : sms;
+  gram_int8_wgmma_kernel<kPairs><<<grid, kThreads, kSmemAlloc, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,25 +474,23 @@ extern "C" {
 int ks_gram_tile() { return kTile; }
 int ks_gram_chunk() { return kChunk; }
 
-// Pairs of limbs go to the two-accumulator kernel, an odd last limb to the
-// one-accumulator kernel (a second launch).  Shapes are checked by the
-// Python wrapper; returns the first CUDA error, so a refused launch is not
-// silent.
+// One kernel launch for any L.  Shapes are checked by the Python wrapper;
+// returns the first CUDA error, so a refused launch is not silent.
 int ks_gram_int8_tiles(const void* bits_i, const void* bits_j, const void* wl,
                        const void* tile_i, const void* tile_j, void* out,
                        int num_pairs, int n_blocks, int block, int n_limbs,
                        int npad_i, int npad_j, void* stream) {
   if (num_pairs <= 0 || n_limbs <= 0 || n_blocks <= 0 || block < kChunk)
     return static_cast<int>(cudaGetLastError());
+  const Args a{static_cast<const uint8_t*>(bits_i),
+               static_cast<const uint8_t*>(bits_j),
+               static_cast<const int8_t*>(wl),
+               static_cast<const int32_t*>(tile_i),
+               static_cast<const int32_t*>(tile_j),
+               static_cast<int32_t*>(out),
+               num_pairs, n_blocks, block, n_limbs, npad_i, npad_j};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  if (n_limbs >= 2)
-    rc = launch<2>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs,
-                   n_limbs / 2, 0, n_blocks, block, n_limbs, npad_i, npad_j, st);
-  if (rc == 0 && n_limbs % 2)
-    rc = launch<1>(bits_i, bits_j, wl, tile_i, tile_j, out, num_pairs, 1,
-                   n_limbs - 1, n_blocks, block, n_limbs, npad_i, npad_j, st);
-  return rc;
+  return n_limbs >= 2 ? launch<true>(a, st) : launch<false>(a, st);
 }
 
 }  // extern "C"

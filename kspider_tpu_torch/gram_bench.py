@@ -1,27 +1,33 @@
-"""The int8 Gram kernel on the card: exactness, time, bound and yardstick.
+"""The Gram kernel on the card: exactness, time, bound and yardstick.
 
-    python -m kspider_tpu_torch.gram_bench [--reps R] [--no-plain]
+    python -m kspider_tpu_torch.gram_bench [--reps R] [--no-plain] [--seed S]
 
-Holds ``cooccurrence_tiles`` (int8 form) bit-exact against its plain torch
-version on small ragged cases (L = 1, 2, 3; all, upper and shuffled list
-modes), then times it at the shapes the main path gives it (``SHAPES``)
-with CUDA events, beside:
+The one definition of the kernel's check cases and of its measurement,
+used by this quick check, by ``chip_smoke.py`` (phase 3) and by
+``tests/test_torch_gpu.py``:
 
-- ``plain_ms``: ``cooccurrence_tiles_plain`` on the same inputs;
-- ``bound_ms``: the least time the card could take, the larger of the
-  operations over the int8 tensor peak and the bytes over the memory rate
-  (``bound``);
-- ``library_ms``: one ``torch._int_mm`` of the unpacked operands
-  (``int_mm_operands``): the weighted i side ``int8[L * n_i, C]`` times the
+- ``RAGGED``: small ragged shapes, each run in every mode of ``MODES``
+  (``ragged_inputs``, ``mode_tiles``), held bit-exact against the plain
+  torch version (``max_err``);
+- ``measure``: at one shape and form, ``max_abs_err`` and, with CUDA
+  events after a warm-up, ``ms`` (one call into a freshly zeroed ``out``,
+  as the paths call it), ``plain_ms`` (``cooccurrence_tiles_plain``, the
+  same way), ``bound_ms``/``bound_by`` (the larger of the operations over
+  the form's tensor peak and the bytes over the memory rate, ``bound``)
+  and ``library_ms``: one ``torch._int_mm`` of the unpacked operands
+  (``int_mm_operands``), the weighted i side ``int8[L * n_i, C]`` times the
   0/1 j side ``int8[C, n_j]``, every tile of every limb in one call.  For
-  the "upper" mode it computes the whole square, about twice the work.
+  an "upper" launch it computes the whole square, about twice the work.
   The unpack is outside the timing; its operands are 8x the packed bytes.
 
-Needs a CUDA card; ``chip_smoke.py`` uses the same helpers.
+This module's main checks ``RAGGED`` and measures the int8 form on random
+inputs at ``SHAPES``; ``chip_smoke.py`` measures both forms on its
+collections' own inputs at the path's shapes.  Needs a CUDA card.
 """
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 
@@ -37,18 +43,39 @@ INT8_OPS_PER_S = 1.979e15
 BF16_OPS_PER_S = 0.989e15
 BYTES_PER_S = 3.35e12
 
-#: (label, mode, npad_i, npad_j, NB, L): the shapes the main path gives the
-#: kernel (blocks of 1,024 colors): the dense engine's 64-block chunk at
-#: N = 8,192; the same as all tiles; the tiled engine's diagonal and
-#: off-diagonal panel pairs at N = 32,768; a 4,096 x 4,096 rectangle
+#: (label, mode of MODES, npad_i, npad_j, NB, L): the shapes the main path
+#: gives the kernel (blocks of 1,024 colors): the dense engine's 64-block
+#: chunk at N = 8,192; the same as a square; the tiled engine's diagonal and
+#: off-diagonal panel pairs at N = 32,768; a 4,096 x 4,096 rectangle; then
+#: the diagonal pair at the other limb counts (L = 3 once a color holds
+#: 16,384 k-mers or more)
 SHAPES = (
     ("dense upper, n_pad 8192, NB 64", "upper", 8192, 8192, 64, 2),
-    ("square all, 8192^2, NB 64", "all", 8192, 8192, 64, 2),
+    ("square all, 8192^2, NB 64", "square", 8192, 8192, 64, 2),
     ("tiled diagonal, panel 4096, NB 102", "upper", 4096, 4096, 102, 2),
-    ("tiled off-diagonal, 4096^2, NB 8", "all", 4096, 4096, 8, 2),
-    ("rect, 4096^2, NB 64", "all", 4096, 4096, 64, 2),
+    ("tiled off-diagonal, 4096^2, NB 8", "rect", 4096, 4096, 8, 2),
+    ("rect, 4096^2, NB 64", "rect", 4096, 4096, 64, 2),
+    ("tiled diagonal, panel 4096, NB 102, L 1", "upper", 4096, 4096, 102, 1),
+    ("tiled diagonal, panel 4096, NB 102, L 3", "upper", 4096, 4096, 102, 3),
+    ("tiled diagonal, panel 4096, NB 102, L 4", "upper", 4096, 4096, 102, 4),
 )
 BLOCK = 1024
+
+#: small ragged shapes, each checked in every mode of MODES:
+#: (NB, npad_i, npad_j, block, L), L = 1-4, blocks of one to eight chunks
+RAGGED = (
+    (1, 128, 128, 128, 1),
+    (1, 256, 384, 128, 2),
+    (1, 384, 384, 1024, 3),
+    (3, 640, 256, 256, 2),
+    (5, 384, 640, 128, 3),
+    (2, 1152, 896, 640, 1),
+    (2, 640, 512, 384, 4),
+)
+#: the launch modes of a ragged shape: every tile of the i x j rectangle,
+#: every tile of the i x i square, its upper tiles, and the rectangle's
+#: tiles in a shuffled order (a "list" launch)
+MODES = ("rect", "square", "upper", "list")
 
 
 def gram_ops(n_tiles: int, colors: int, n_limbs: int, tile: int = cp.TILE) -> int:
@@ -57,11 +84,11 @@ def gram_ops(n_tiles: int, colors: int, n_limbs: int, tile: int = cp.TILE) -> in
     return 2 * n_tiles * tile * tile * colors * n_limbs
 
 
-def gram_bytes(bits_i, bits_j, wl, out) -> int:
+def gram_bytes(bits_i, bits_j, wl, out_shape) -> int:
     """Bytes the function must move: each input read once (one side when
-    both are the same tensor), ``out`` read and written once."""
+    both are the same tensor), the int32 ``out`` read and written once."""
     sides = bits_i.numel() + (0 if bits_j is bits_i else bits_j.numel())
-    return sides + wl.numel() + 2 * 4 * out.numel()
+    return sides + wl.numel() + 2 * 4 * math.prod(out_shape)
 
 
 def bound(ops: int, nbytes: int, ops_per_s: float = INT8_OPS_PER_S):
@@ -102,7 +129,8 @@ def int_mm_operands(bits_i, bits_j, wl):
 
 
 def random_inputs(rng, npad_i, npad_j, nb, n_limbs, block, device, same=False):
-    """Random packed bits and limbs (limbs in [0, 127]) on ``device``."""
+    """Random packed bits and limbs (limbs in [0, 127]) on ``device``: the
+    i side, the j side (unless ``same``), then the limbs, in that order."""
     def side(n):
         return torch.from_numpy(rng.integers(0, 256, (nb, n // 8, block),
                                              dtype=np.uint8)).to(device)
@@ -113,26 +141,37 @@ def random_inputs(rng, npad_i, npad_j, nb, n_limbs, block, device, same=False):
     return bits_i, bits_j, wl
 
 
-def tiles_of(mode, npad_i, npad_j, rng=None):
-    nti, ntj = npad_i // cp.TILE, npad_j // cp.TILE
+def ragged_inputs(shape, rng, device):
+    """(bits_i, bits_j, wl) of one ``RAGGED`` shape, drawn from ``rng``."""
+    nb, npad_i, npad_j, block, n_limbs = shape
+    return random_inputs(rng, npad_i, npad_j, nb, n_limbs, block, device)
+
+
+def mode_tiles(mode, bits_i, bits_j, rng):
+    """(bits_i, bits_j, tile_i, tile_j) of one ``MODES`` launch on the i and
+    j sides' packed bits; "list" draws its order from ``rng``."""
+    nti, ntj = 8 * bits_i.shape[1] // cp.TILE, 8 * bits_j.shape[1] // cp.TILE
+    if mode == "square":
+        return (bits_i, bits_i, *cp.all_tiles(nti, nti))
     if mode == "upper":
-        return cp.upper_triangle_tiles(nti)
+        return (bits_i, bits_i, *cp.upper_triangle_tiles(nti))
     ti, tj = cp.all_tiles(nti, ntj)
-    if mode == "list":  # every tile, in a shuffled order
+    if mode == "list":
         order = rng.permutation(len(ti))
-        return ti[order], tj[order]
-    return ti, tj
+        ti, tj = ti[order], tj[order]
+    return bits_i, bits_j, ti, tj
 
 
-def max_err(bits_i, bits_j, wl, ti, tj, out_shape):
+def max_err(bits_i, bits_j, wl, ti, tj, compute_dtype=torch.int8):
     """max |kernel - plain| over ``out``, both from the same random start
-    (the kernel accumulates in place)."""
-    start = torch.randint(-1000, 1000, out_shape, dtype=torch.int32,
+    (the kernel accumulates in place); one kernel launch."""
+    shape = (wl.shape[1], 8 * bits_i.shape[1], 8 * bits_j.shape[1])
+    start = torch.randint(-1000, 1000, shape, dtype=torch.int32,
                           device=bits_i.device)
     got = cp.cooccurrence_tiles(bits_i, bits_j, wl, ti, tj, tile=cp.TILE,
-                                out=start.clone())
+                                out=start.clone(), compute_dtype=compute_dtype)
     want = cp.cooccurrence_tiles_plain(bits_i, bits_j, wl, ti, tj, tile=cp.TILE,
-                                       out=start.clone())
+                                       out=start, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
     err = int(diff.max()) if diff.numel() else 0
@@ -145,58 +184,34 @@ def max_err(bits_i, bits_j, wl, ti, tj, out_shape):
     return err
 
 
-#: small ragged cases: (npad_i, npad_j, NB, block, L, mode, same side)
-RAGGED = (
-    (128, 128, 1, 128, 1, "all", True),
-    (256, 384, 1, 128, 2, "all", False),
-    (384, 384, 1, 1024, 3, "upper", True),
-    (640, 256, 3, 256, 2, "all", False),
-    (512, 512, 2, 384, 1, "upper", True),
-    (384, 640, 5, 128, 3, "list", False),
-    (640, 640, 2, 256, 2, "list", True),
-    (1152, 896, 1, 640, 4, "all", False),
-)
+def measure(bits_i, bits_j, wl, ti, tj, reps, *, compute_dtype=torch.int8,
+            plain_reps=1, library_ms=None):
+    """Kernel against plain at one shape and form: a dict of max_abs_err,
+    ms, plain_ms (None when ``plain_reps`` is 0), bound_ms, bound_by and
+    library_ms (timed unless given, as the bf16 form reuses the int8
+    form's: the operands are the same)."""
+    shape = (wl.shape[1], 8 * bits_i.shape[1], 8 * bits_j.shape[1])
+    err = max_err(bits_i, bits_j, wl, ti, tj, compute_dtype)
 
+    def run(fn):
+        out = torch.zeros(shape, dtype=torch.int32, device=bits_i.device)
+        fn(bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out,
+           compute_dtype=compute_dtype)
 
-def ragged_cases(rng, device):
-    """Max |kernel - plain| of every ``RAGGED`` case, as (label, err)."""
-    out = []
-    for npad_i, npad_j, nb, block, n_limbs, mode, same in RAGGED:
-        if same:
-            npad_j = npad_i
-        bi, bj, wl = random_inputs(rng, npad_i, npad_j, nb, n_limbs, block,
-                                   device, same)
-        ti, tj = tiles_of(mode, npad_i, npad_j, rng)
-        label = (f"{mode} {npad_i}x{npad_j} NB={nb} block={block} L={n_limbs}"
-                 f"{' one side' if same else ''}")
-        out.append((label, max_err(bi, bj, wl, ti, tj, (n_limbs, npad_i, npad_j))))
-    return out
-
-
-def measure(bits_i, bits_j, wl, ti, tj, reps, plain=True, library=True):
-    """Kernel ms, plain ms, bound (ms, by), library ms at one shape."""
-    n_limbs = wl.shape[1]
-    npad_i, npad_j = 8 * bits_i.shape[1], 8 * bits_j.shape[1]
-    out = torch.zeros((n_limbs, npad_i, npad_j), dtype=torch.int32,
-                      device=bits_i.device)
-
-    def kernel():
-        cp.cooccurrence_tiles(bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out)
-
-    ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(lambda: cp.cooccurrence_tiles_plain(
-        bits_i, bits_j, wl, ti, tj, tile=cp.TILE, out=out), 1) if plain else None
-    colors = bits_i.shape[0] * bits_i.shape[2]
-    b_ms, b_by = bound(gram_ops(len(ti), colors, n_limbs),
-                       gram_bytes(bits_i, bits_j, wl, out))
-    library_ms = None
-    if library:
-        del out
+    ms = cuda_ms(lambda: run(cp.cooccurrence_tiles), reps)
+    plain_ms = cuda_ms(lambda: run(cp.cooccurrence_tiles_plain), plain_reps) \
+        if plain_reps else None
+    bound_ms, bound_by = bound(
+        gram_ops(len(ti), bits_i.shape[0] * bits_i.shape[2], shape[0]),
+        gram_bytes(bits_i, bits_j, wl, shape),
+        INT8_OPS_PER_S if compute_dtype == torch.int8 else BF16_OPS_PER_S)
+    if library_ms is None:
         lhs, rhs = int_mm_operands(bits_i, bits_j, wl)
         library_ms = cuda_ms(lambda: torch._int_mm(lhs, rhs), reps)
         del lhs, rhs
         torch.cuda.empty_cache()
-    return ms, plain_ms, b_ms, b_by, library_ms
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def card_line() -> str:
@@ -219,26 +234,29 @@ def main():
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
     rng = np.random.default_rng(args.seed)
-    errs = ragged_cases(rng, dev)
-    for label, err in errs:
-        print(f"  ragged {label}: max_abs_err={err}", flush=True)
+    errs = []
+    for shape in RAGGED:
+        bi, bj, wl = ragged_inputs(shape, rng, dev)
+        for mode in MODES:
+            mi, mj, ti, tj = mode_tiles(mode, bi, bj, rng)
+            errs.append(max_err(mi, mj, wl, ti, tj))
+            print(f"  ragged {mode} NB={shape[0]} npad={shape[1]}x{shape[2]} "
+                  f"block={shape[3]} L={shape[4]}: max_abs_err={errs[-1]}",
+                  flush=True)
     rows = []
     for label, mode, npad_i, npad_j, nb, n_limbs in SHAPES:
-        same = mode == "upper" or label.startswith("square")
         bi, bj, wl = random_inputs(rng, npad_i, npad_j, nb, n_limbs, BLOCK, dev,
-                                   same)
-        ti, tj = tiles_of(mode, npad_i, npad_j)
-        err = max_err(bi, bj, wl, ti, tj, (n_limbs, npad_i, npad_j))
-        ms, plain_ms, b_ms, b_by, lib_ms = measure(
-            bi, bj, wl, ti, tj, args.reps, plain=not args.no_plain)
-        row = dict(shape=label, mode=mode, tiles=len(ti), max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   share=b_ms / ms, library_ms=lib_ms)
+                                   same=mode in ("upper", "square"))
+        bi, bj, ti, tj = mode_tiles(mode, bi, bj, rng)
+        r = measure(bi, bj, wl, ti, tj, args.reps,
+                    plain_reps=0 if args.no_plain else 1)
+        row = dict(shape=label, mode=mode, tiles=len(ti), **r,
+                   share=r["bound_ms"] / r["ms"])
         rows.append(row)
         print(f"  {label}: {json.dumps(row)}", flush=True)
         del bi, bj, wl
         torch.cuda.empty_cache()
-    ok = all(e == 0 for _, e in errs) and all(r["max_abs_err"] == 0 for r in rows)
+    ok = not any(errs) and all(r["max_abs_err"] == 0 for r in rows)
     print(json.dumps({"ok": ok, "shapes": rows}))
     sys.exit(0 if ok else 1)
 

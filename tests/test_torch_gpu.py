@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from kspider_tpu_torch import gram_bench as gb
 from kspider_tpu_torch.ops import bitmask as tbm
 from kspider_tpu_torch.ops import cc as tcc
 from kspider_tpu_torch.ops import cuda_pairwise as cp
@@ -66,38 +67,49 @@ def run(bits_i, bits_j, wl, ti, tj, npad_i, npad_j, device,
     return out.cpu().numpy()
 
 
-def mode_args(mode, max_weight, block, n_i=250, n_j=380):
-    """Inputs of one launch mode: samples padded to whole 128-wide tiles;
-    "list" is every tile of the rectangle in a shuffled order."""
-    pad_i, pad_j = -(-n_i // 128) * 128, -(-n_j // 128) * 128
-    bits_i, wl_t = packed(max_weight, 1500, n_i, pad_i, max_weight, block)
-    bits_j, _ = packed(max_weight + 1, 1500, n_j, pad_j, max_weight, block)
+def mode_args(mode, max_weight, block):
+    """Inputs of one launch mode from packed CSR colors: 250 and 380
+    samples padded to 256 and 384; "list" is every tile of the rectangle
+    in a shuffled order."""
+    bits_i, wl_t = packed(max_weight, 1500, 250, 256, max_weight, block)
+    bits_j, _ = packed(max_weight + 1, 1500, 380, 384, max_weight, block)
     if mode == "square":
-        return (bits_i, bits_i, wl_t, *cp.all_tiles(pad_i // 128, pad_i // 128),
-                pad_i, pad_i)
+        return (bits_i, bits_i, wl_t, *cp.all_tiles(2, 2), 256, 256)
     if mode in ("rect", "list"):
-        ti, tj = cp.all_tiles(pad_i // 128, pad_j // 128)
+        ti, tj = cp.all_tiles(2, 3)
         if mode == "list":
-            order = np.random.default_rng(n_i + n_j).permutation(len(ti))
+            order = np.random.default_rng(max_weight).permutation(len(ti))
             ti, tj = ti[order], tj[order]
-        return (bits_i, bits_j, wl_t, ti, tj, pad_i, pad_j)
-    return (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(pad_j // 128),
-            pad_j, pad_j)
+        return (bits_i, bits_j, wl_t, ti, tj, 256, 384)
+    return (bits_j, bits_j, wl_t, *cp.upper_triangle_tiles(3), 384, 384)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["square", "rect", "upper", "list"])
 @pytest.mark.parametrize("max_weight,block", [(127, 128), (16000, 1024), (40000, 256)])
-@pytest.mark.parametrize("n_i,n_j", [(250, 380), (1000, 130), (129, 700)])
-def test_kernel_matches_plain(cuda_device, mode, max_weight, block, n_i, n_j):
-    """L = 1, 2, 3 (max_weight 127, 16000, 40000) at ragged sample counts."""
-    args = mode_args(mode, max_weight, block, n_i, n_j)
+def test_kernel_matches_plain(cuda_device, mode, max_weight, block):
+    """L = 1, 2, 3 (max_weight 127, 16000, 40000): one launch each."""
+    args = mode_args(mode, max_weight, block)
     assert args[2].shape[1] == {127: 1, 16000: 2, 40000: 3}[max_weight]
     before = cp.LAUNCHES
     got = run(*args, device=cuda_device)
     torch.cuda.synchronize()
     assert cp.LAUNCHES == before + 1
     assert np.array_equal(got, run(*args, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", gb.MODES)
+@pytest.mark.parametrize("shape", gb.RAGGED, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_ragged(cuda_device, shape, mode):
+    """gram_bench's ragged shapes, which chip_smoke.py checks too (L = 1-4,
+    in place from a random start): one launch each."""
+    rng = np.random.default_rng(sum(shape))
+    bits_i, bits_j, wl = gb.ragged_inputs(shape, rng, cuda_device)
+    bits_i, bits_j, ti, tj = gb.mode_tiles(mode, bits_i, bits_j, rng)
+    before = cp.LAUNCHES
+    assert gb.max_err(bits_i, bits_j, wl, ti, tj) == 0
+    assert cp.LAUNCHES == before + 1
 
 
 @pytest.mark.gpu
