@@ -16,10 +16,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    version of each form.  Each case prints ``gram_bench.measure``'s
    numbers: the kernel's ms and the plain version's (CUDA events), its
    bound ms (operations over the tensor peak of the form, or bytes over
-   the memory rate, whichever is larger) and the ms of one
-   ``torch._int_mm`` on the unpacked operands (the library yardstick,
-   timed here and never called by the port).  The phase prints its own
-   time, split into the path's shapes and the ragged ones per form;
+   the memory rate, whichever is larger) and the ms of the form's library
+   yardstick on the unpacked operands, timed here and never called by the
+   port: one ``torch._int_mm`` for int8, one bf16 ``torch.mm`` into float32
+   for bf16 (``gram_bench.library_call``).  The phase prints its own time,
+   split into the path's shapes and the ragged ones per form;
 4. dense path: a synthetic genus-scale index (F families of 8 samples,
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
    and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
@@ -105,7 +106,7 @@ ARTIFACTS = ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
 #: each form's kernel name in torch.profiler, its source and its tensor peak
 FORMS = {
     torch.int8: ("gram_int8_wgmma_kernel", "kspider_tpu_torch/csrc/gram_int8.cu"),
-    torch.bfloat16: ("gram_tiles_kernel", "kspider_tpu_torch/csrc/gram_bf16.cu"),
+    torch.bfloat16: ("gram_bf16_wgmma_kernel", "kspider_tpu_torch/csrc/gram_bf16.cu"),
 }
 
 
@@ -182,21 +183,22 @@ def make_index(rng, n_families, prefix):
 
 
 def compare_mode(label, bits_i, bits_j, wl, ti, tj, reps,
-                 compute_dtype=torch.int8, library_ms=None):
+                 compute_dtype=torch.int8):
     """Kernel vs plain on one launch mode of one form (``gram_bench.measure``:
     plain timed over max(1, reps // 5) calls); prints and returns its dict
-    of max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms."""
+    of max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms and
+    library."""
     from kspider_tpu_torch import gram_bench as gb
 
     r = gb.measure(bits_i, bits_j, wl, ti, tj, reps, compute_dtype=compute_dtype,
-                   plain_reps=max(1, reps // 5), library_ms=library_ms)
+                   plain_reps=max(1, reps // 5))
     print(f"  {label} [{str(compute_dtype)[6:]}]: NB={bits_i.shape[0]} "
           f"npad={8 * bits_i.shape[1]}x{8 * bits_j.shape[1]} "
           f"block={bits_i.shape[2]} L={wl.shape[1]} pairs={len(ti)} "
           f"max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
           f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
           f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}) "
-          f"library_ms={r['library_ms']:.4f}", flush=True)
+          f"library_ms={r['library_ms']:.4f} ({r['library']})", flush=True)
     return r
 
 
@@ -549,12 +551,8 @@ def multiprocess_phase(prefix, dense_tsv, names, arrays, workdir, devices,
     t0 = time.perf_counter()
     bounds = np.zeros(len(arrays) + 1, dtype=np.int64)
     np.cumsum([len(a) for a in arrays], out=bounds[1:])
-    # the smoke's hashes lie below 2**63, as a scaled sketch's lie below
-    # 2**64 / scale, so the u64 halves of my_hash_range would leave rank 1
-    # empty; an odd multiplier mod 2**64 is a bijection of the hash space,
-    # so it spreads the hashes over it and keeps every set overlap
     np.savez(npz, names=np.array(names), offsets=bounds,
-             hashes=np.concatenate(arrays) * np.uint64(0x9E3779B97F4A7C15))
+             hashes=np.concatenate(arrays))
     print(f"[multiprocess] saved {len(arrays)} hash sets ({bounds[-1]} hashes) "
           f"to {os.path.basename(npz)}, {time.perf_counter() - t0:.3f} s",
           flush=True)
@@ -766,12 +764,10 @@ def main():
     phase("kernel vs plain", max_err == 0,
           f"{len(results)} cases, max_abs_err={max_err} (exact int32 required)")
     results_bf16 = []
-    for name, cases, done in (("path", path_modes, results[:3]),
-                              ("ragged", ragged_modes, results[3:])):
+    for name, cases in (("path", path_modes), ("ragged", ragged_modes)):
         t0 = time.perf_counter()
-        results_bf16 += [compare_mode(label, *rest, compute_dtype=torch.bfloat16,
-                                      library_ms=r["library_ms"])
-                         for (label, *rest), r in zip(cases, done)]
+        results_bf16 += [compare_mode(label, *rest, compute_dtype=torch.bfloat16)
+                         for label, *rest in cases]
         phase3_s[f"bf16 {name}"] = time.perf_counter() - t0
     max_err_bf16 = max(r["max_abs_err"] for r in results_bf16)
     del bits, wl, bits_a, bits_b, path_modes, ragged_modes
@@ -917,8 +913,7 @@ def main():
         mode = "upper" if bj is bi else "all"
         tiled_modes[mode] = compare_mode(label, bi, bj, wl_t, *tiles, 5)
         tiled_modes_bf16[mode] = compare_mode(
-            label, bi, bj, wl_t, *tiles, 5, compute_dtype=torch.bfloat16,
-            library_ms=tiled_modes[mode]["library_ms"])
+            label, bi, bj, wl_t, *tiles, 5, compute_dtype=torch.bfloat16)
         del bi, bj, wl_t
     torch.cuda.empty_cache()
     tiled_err = max(r["max_abs_err"] for r in tiled_modes.values())
@@ -1010,6 +1005,7 @@ def main():
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
+            "library": main["library"],
             "by_shape": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")}
                          for k, r in rows.items()},

@@ -125,6 +125,12 @@ def group_runs_into_classes(
     return offsets, members, counts
 
 
+#: postings copied into the flat buffer per batch of the index build;
+#: with consume=True a batch's source arrays are released before the next
+#: batch is copied (64 Mi postings: 512 MB of hashes)
+FILL_BATCH_POSTINGS = 1 << 26
+
+
 def build_index_from_hash_sets(
     names: Sequence[str],
     hash_arrays: Sequence[Optional[np.ndarray]],
@@ -143,12 +149,13 @@ def build_index_from_hash_sets(
     the reference reports the raw ``mins`` length even if it contains
     duplicates (kSpider/src/sourmash_indexing.cpp:187).
 
-    ``consume=True`` releases each source array as soon as it is copied
-    into the flat posting buffer (``hash_arrays`` must then be a mutable
-    list; entries are set to ``None``).  At 2.5B postings the per-sample
-    arrays are ~20 GB — without consume they stay co-resident with the
-    flat copy through the whole build, which is what bounds the max N
-    on a 125 GB host (BASELINE.md, 1M-run wall #3).
+    ``consume=True`` releases the source arrays as they are copied into
+    the flat posting buffer, in batches of about ``FILL_BATCH_POSTINGS``
+    postings (``hash_arrays`` must then be a mutable list; entries are set
+    to ``None``).  At 2.5B postings the per-sample arrays are ~20 GB —
+    without consume they stay co-resident with the flat copy through the
+    whole build, which is what bounds the max N on a 125 GB host
+    (BASELINE.md, 1M-run wall #3).
     """
     n = len(names)
     if len(hash_arrays) != n:
@@ -178,12 +185,14 @@ def build_index_from_hash_sets(
             params=params,
         )
 
-    # exact-size flat buffers; one pass copies each sample in and (with
-    # consume) immediately releases the source, so peak memory is ~one
-    # copy of the postings instead of two.  At >=1M postings the copy
-    # sweep runs in native OpenMP (ks_fill_postings) — the per-sample
-    # numpy slice-assignment loop is ~19 s of pure dispatch overhead at
-    # 328M postings (BASELINE.md round-5 phase split).
+    # exact-size flat buffers, filled in batches of about
+    # FILL_BATCH_POSTINGS postings.  With consume each batch's sources are
+    # released before the next batch is copied, so they overlap the flat
+    # copy by one batch and the peak is about one copy of the postings
+    # instead of two.  At >=1M postings the copy runs in native OpenMP
+    # (ks_fill_postings) — the per-sample numpy slice-assignment loop is
+    # ~19 s of pure dispatch overhead at 328M postings (BASELINE.md round-5
+    # phase split); the numpy copy takes one sample at a time.
     if total >= 100_000_000:
         # Return accumulated heap fragments to the OS before the
         # multi-GB allocations below: a preamble that churned millions
@@ -206,45 +215,41 @@ def build_index_from_hash_sets(
 
         if _native.enabled() and _native.available():
             native_fill = _native
-    if native_fill is not None:
-        entries = []
-        pos = 0
-        for g in range(n):
-            arr = hash_arrays[g]
-            if arr is None or len(arr) == 0:
-                continue
-            a = arr
-            if not (isinstance(a, np.ndarray) and a.dtype == np.uint64
-                    and a.flags["C_CONTIGUOUS"]):
-                a = np.ascontiguousarray(a, dtype=np.uint64)
-            entries.append((g, a, pos))
-            pos += len(a)
-        assert pos == total
-        try:
-            native_fill.fill_postings(entries, hashes, gids)
-            if consume:
-                for g, _, _ in entries:
-                    hash_arrays[g] = None
-            entries = None
-        except native_fill.NativeRequiredError:
-            raise
-        except Exception as exc:
-            native_fill.report_fallback("fill_postings", exc)
-            native_fill = None
-            entries = None
-    if native_fill is None:
-        pos = 0
-        for g in range(n):
-            arr = hash_arrays[g]
-            if arr is None or len(arr) == 0:
-                continue
-            m = len(arr)
-            hashes[pos : pos + m] = np.asarray(arr, dtype=np.uint64)
-            gids[pos : pos + m] = g
-            pos += m
-            if consume:
+    batch = []  # (gid, uint64 C-contiguous array, offset) not yet copied
+
+    def copy_batch():
+        nonlocal native_fill
+        if native_fill is not None:
+            try:
+                native_fill.fill_postings(batch, hashes, gids)
+            except native_fill.NativeRequiredError:
+                raise
+            except Exception as exc:
+                native_fill.report_fallback("fill_postings", exc)
+                native_fill = None
+        if native_fill is None:
+            for g, a, off in batch:
+                hashes[off : off + len(a)] = a
+                gids[off : off + len(a)] = g
+        if consume:
+            for g, _, _ in batch:
                 hash_arrays[g] = None
-        assert pos == total
+        batch.clear()
+
+    pos = batch_start = 0
+    for g in range(n):
+        arr = hash_arrays[g]
+        if arr is None or len(arr) == 0:
+            continue
+        batch.append((g, np.ascontiguousarray(arr, dtype=np.uint64), pos))
+        pos += len(arr)
+        if native_fill is None or pos - batch_start >= FILL_BATCH_POSTINGS:
+            copy_batch()
+            batch_start = pos
+    arr = None  # the loop's last sample goes with its batch
+    if batch:
+        copy_batch()
+    assert pos == total
 
     # native fast path for large posting sets (failure warns once or, under
     # KSPIDER_NATIVE=force, raises — see io/native.report_fallback)

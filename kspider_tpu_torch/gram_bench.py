@@ -1,6 +1,7 @@
 """The Gram kernel on the card: exactness, time, bound and yardstick.
 
-    python -m kspider_tpu_torch.gram_bench [--reps R] [--no-plain] [--seed S]
+    python -m kspider_tpu_torch.gram_bench [--form int8|bf16|both] [--reps R]
+                                           [--no-plain] [--seed S]
 
 The one definition of the kernel's check cases and of its measurement,
 used by this quick check, by ``chip_smoke.py`` (phase 3) and by
@@ -14,15 +15,19 @@ used by this quick check, by ``chip_smoke.py`` (phase 3) and by
   as the paths call it), ``plain_ms`` (``cooccurrence_tiles_plain``, the
   same way), ``bound_ms``/``bound_by`` (the larger of the operations over
   the form's tensor peak and the bytes over the memory rate, ``bound``)
-  and ``library_ms``: one ``torch._int_mm`` of the unpacked operands
-  (``int_mm_operands``), the weighted i side ``int8[L * n_i, C]`` times the
-  0/1 j side ``int8[C, n_j]``, every tile of every limb in one call.  For
-  an "upper" launch it computes the whole square, about twice the work.
-  The unpack is outside the timing; its operands are 8x the packed bytes.
+  and ``library_ms``: one library product of the unpacked operands
+  (``int_mm_operands``), the weighted i side ``[L * n_i, C]`` times the
+  0/1 j side ``[C, n_j]``, every tile of every limb in one call, named in
+  ``library``: ``torch._int_mm`` of the int8 operands for the int8 form,
+  ``torch.mm`` of the operands cast to bf16 into float32 for the bf16 form
+  (``library_call``).  For an "upper" launch it computes the whole square,
+  about twice the work.  The unpack and the cast are outside the timing;
+  the operands are 8x (int8) or 16x (bf16) the packed bytes.
 
-This module's main checks ``RAGGED`` and measures the int8 form on random
-inputs at ``SHAPES``; ``chip_smoke.py`` measures both forms on its
-collections' own inputs at the path's shapes.  Needs a CUDA card.
+This module's main checks ``RAGGED`` and measures random inputs at
+``SHAPES``, in the forms ``--form`` names (both by default);
+``chip_smoke.py`` measures both forms on its collections' own inputs at the
+path's shapes.  Needs a CUDA card.
 """
 
 import argparse
@@ -46,15 +51,17 @@ BYTES_PER_S = 3.35e12
 #: (label, mode of MODES, npad_i, npad_j, NB, L): the shapes the main path
 #: gives the kernel (blocks of 1,024 colors): the dense engine's 64-block
 #: chunk at N = 8,192; the same as a square; the tiled engine's diagonal and
-#: off-diagonal panel pairs at N = 32,768; a 4,096 x 4,096 rectangle; then
-#: the diagonal pair at the other limb counts (L = 3 once a color holds
-#: 16,384 k-mers or more)
+#: off-diagonal panel pairs at N = 32,768; a 4,096 x 4,096 rectangle; one
+#: of the two shards of the dense engine's colors at N = 8,192 (97 of its
+#: 193 blocks); then the diagonal pair at the other limb counts (L = 3 once
+#: a color holds 16,384 k-mers or more)
 SHAPES = (
     ("dense upper, n_pad 8192, NB 64", "upper", 8192, 8192, 64, 2),
     ("square all, 8192^2, NB 64", "square", 8192, 8192, 64, 2),
     ("tiled diagonal, panel 4096, NB 102", "upper", 4096, 4096, 102, 2),
     ("tiled off-diagonal, 4096^2, NB 8", "rect", 4096, 4096, 8, 2),
     ("rect, 4096^2, NB 64", "rect", 4096, 4096, 64, 2),
+    ("dense upper, one of two shards, NB 97", "upper", 8192, 8192, 97, 2),
     ("tiled diagonal, panel 4096, NB 102, L 1", "upper", 4096, 4096, 102, 1),
     ("tiled diagonal, panel 4096, NB 102, L 3", "upper", 4096, 4096, 102, 3),
     ("tiled diagonal, panel 4096, NB 102, L 4", "upper", 4096, 4096, 102, 4),
@@ -114,8 +121,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def int_mm_operands(bits_i, bits_j, wl):
-    """The unpacked operands of the library yardstick: ``int8[L * n_i, C]``
-    (row ``l * n_i + i`` is bit_i times limb l) and ``int8[C, n_j]``."""
+    """The unpacked operands of the int8 library yardstick:
+    ``int8[L * n_i, C]`` (row ``l * n_i + i`` is bit_i times limb l) and
+    ``int8[C, n_j]``."""
     a_i = bm.unpack_bits_to_int8(bits_i.transpose(1, 2))  # [NB, block, n_i]
     a_j = bm.unpack_bits_to_int8(bits_j.transpose(1, 2))
     w = wl.transpose(1, 2)  # [NB, block, L]
@@ -184,12 +192,22 @@ def max_err(bits_i, bits_j, wl, ti, tj, compute_dtype=torch.int8):
     return err
 
 
+def library_call(lhs, rhs, compute_dtype):
+    """(name, call) of the library product that computes the form's
+    function on ``int_mm_operands``: ``torch._int_mm`` for int8, a
+    ``torch.mm`` of the operands cast to bf16 into float32 for bf16."""
+    if compute_dtype == torch.int8:
+        return "torch._int_mm", lambda: torch._int_mm(lhs, rhs)
+    lhs, rhs = lhs.to(torch.bfloat16), rhs.to(torch.bfloat16)
+    return ("torch.mm bf16 -> float32",
+            lambda: torch.mm(lhs, rhs, out_dtype=torch.float32))
+
+
 def measure(bits_i, bits_j, wl, ti, tj, reps, *, compute_dtype=torch.int8,
-            plain_reps=1, library_ms=None):
+            plain_reps=1):
     """Kernel against plain at one shape and form: a dict of max_abs_err,
-    ms, plain_ms (None when ``plain_reps`` is 0), bound_ms, bound_by and
-    library_ms (timed unless given, as the bf16 form reuses the int8
-    form's: the operands are the same)."""
+    ms, plain_ms (None when ``plain_reps`` is 0), bound_ms, bound_by,
+    library_ms and library (the name of the timed call)."""
     shape = (wl.shape[1], 8 * bits_i.shape[1], 8 * bits_j.shape[1])
     err = max_err(bits_i, bits_j, wl, ti, tj, compute_dtype)
 
@@ -205,13 +223,13 @@ def measure(bits_i, bits_j, wl, ti, tj, reps, *, compute_dtype=torch.int8,
         gram_ops(len(ti), bits_i.shape[0] * bits_i.shape[2], shape[0]),
         gram_bytes(bits_i, bits_j, wl, shape),
         INT8_OPS_PER_S if compute_dtype == torch.int8 else BF16_OPS_PER_S)
-    if library_ms is None:
-        lhs, rhs = int_mm_operands(bits_i, bits_j, wl)
-        library_ms = cuda_ms(lambda: torch._int_mm(lhs, rhs), reps)
-        del lhs, rhs
-        torch.cuda.empty_cache()
+    library, call = library_call(*int_mm_operands(bits_i, bits_j, wl),
+                                 compute_dtype)
+    library_ms = cuda_ms(call, reps)
+    del call
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, library=library)
 
 
 def card_line() -> str:
@@ -221,8 +239,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+FORMS = {"int8": (torch.int8,), "bf16": (torch.bfloat16,),
+         "both": (torch.int8, torch.bfloat16)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--form", choices=sorted(FORMS), default="both",
+                    help="the kernel forms to check and time")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--no-plain", action="store_true",
                     help="skip the plain version's times (slow at full size)")
@@ -233,29 +257,30 @@ def main():
         sys.exit(1)
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
-    rng = np.random.default_rng(args.seed)
-    errs = []
-    for shape in RAGGED:
-        bi, bj, wl = ragged_inputs(shape, rng, dev)
-        for mode in MODES:
-            mi, mj, ti, tj = mode_tiles(mode, bi, bj, rng)
-            errs.append(max_err(mi, mj, wl, ti, tj))
-            print(f"  ragged {mode} NB={shape[0]} npad={shape[1]}x{shape[2]} "
-                  f"block={shape[3]} L={shape[4]}: max_abs_err={errs[-1]}",
-                  flush=True)
-    rows = []
-    for label, mode, npad_i, npad_j, nb, n_limbs in SHAPES:
-        bi, bj, wl = random_inputs(rng, npad_i, npad_j, nb, n_limbs, BLOCK, dev,
-                                   same=mode in ("upper", "square"))
-        bi, bj, ti, tj = mode_tiles(mode, bi, bj, rng)
-        r = measure(bi, bj, wl, ti, tj, args.reps,
-                    plain_reps=0 if args.no_plain else 1)
-        row = dict(shape=label, mode=mode, tiles=len(ti), **r,
-                   share=r["bound_ms"] / r["ms"])
-        rows.append(row)
-        print(f"  {label}: {json.dumps(row)}", flush=True)
-        del bi, bj, wl
-        torch.cuda.empty_cache()
+    errs, rows = [], []
+    for dtype in FORMS[args.form]:
+        form = str(dtype)[6:]
+        rng = np.random.default_rng(args.seed)
+        for shape in RAGGED:
+            bi, bj, wl = ragged_inputs(shape, rng, dev)
+            for mode in MODES:
+                mi, mj, ti, tj = mode_tiles(mode, bi, bj, rng)
+                errs.append(max_err(mi, mj, wl, ti, tj, dtype))
+                print(f"  [{form}] ragged {mode} NB={shape[0]} "
+                      f"npad={shape[1]}x{shape[2]} block={shape[3]} "
+                      f"L={shape[4]}: max_abs_err={errs[-1]}", flush=True)
+        for label, mode, npad_i, npad_j, nb, n_limbs in SHAPES:
+            bi, bj, wl = random_inputs(rng, npad_i, npad_j, nb, n_limbs, BLOCK,
+                                       dev, same=mode in ("upper", "square"))
+            bi, bj, ti, tj = mode_tiles(mode, bi, bj, rng)
+            r = measure(bi, bj, wl, ti, tj, args.reps, compute_dtype=dtype,
+                        plain_reps=0 if args.no_plain else 1)
+            row = dict(form=form, shape=label, mode=mode, tiles=len(ti), **r,
+                       share=r["bound_ms"] / r["ms"])
+            rows.append(row)
+            print(f"  {label}: {json.dumps(row)}", flush=True)
+            del bi, bj, wl
+            torch.cuda.empty_cache()
     ok = not any(errs) and all(r["max_abs_err"] == 0 for r in rows)
     print(json.dumps({"ok": ok, "shapes": rows}))
     sys.exit(0 if ok else 1)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources under ``kspider_tpu_torch/csrc/`` are compiled by ``nvcc`` into
-a shared library with a plain C interface and loaded with ``ctypes``.  The
-library lands in ``kspider_tpu_torch/build/`` under a name that carries a
-hash of the sources and flags, so an edited source is rebuilt and a stale
-build is never loaded.  Nothing is compiled at import time.
+The sources under ``kspider_tpu_torch/csrc/`` are compiled by ``nvcc``, one
+process per source, all started together, and linked into a shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
+``kspider_tpu_torch/build/`` under a name that carries a hash of the sources,
+the headers they include and the flags, so an edited source or header is
+rebuilt and a stale build is never loaded.  Nothing is compiled at import
+time.
 """
 
 import ctypes
@@ -13,14 +15,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("gram_int8.cu", "gram_bf16.cu")
+#: headers the sources include: part of the library's hash
+HEADERS = ("gram_wgmma.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -41,10 +46,18 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_CSRC_DIR, name), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libkspider_torch_{digest.hexdigest()[:16]}.so")
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
 
 
 def build() -> str:
@@ -53,15 +66,17 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    tmp = f"{path}.{os.getpid()}"
+    nvcc = find_nvcc()
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC_DIR, s), "-o", o]
+            for s, o in zip(SOURCES, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        list(pool.map(_run, cmds))
+    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs])
+    for o in objs:
+        os.remove(o)
+    os.replace(f"{tmp}.tmp", path)
     return path
 
 
@@ -75,9 +90,10 @@ def library() -> ctypes.CDLL:
     for name in ("ks_gram_chunk", "ks_gram_chunk_bf16"):
         getattr(lib, name).restype = ci
         getattr(lib, name).argtypes = []
-    for name in ("ks_gram_int8_tiles", "ks_gram_bf16_tiles"):
-        getattr(lib, name).restype = ci
-        getattr(lib, name).argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
-        ]
+    # pointers, then num_pairs, n_blocks, block, n_limbs, npad_i, npad_j,
+    # (bf16: segment_chunks,) stream
+    lib.ks_gram_int8_tiles.restype = ci
+    lib.ks_gram_int8_tiles.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.ks_gram_bf16_tiles.restype = ci
+    lib.ks_gram_bf16_tiles.argtypes = [vp] * 6 + [ci] * 7 + [vp]
     return lib

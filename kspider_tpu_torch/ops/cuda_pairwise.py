@@ -13,9 +13,9 @@ and, after ``mirror_upper_tiles``, the symmetric one.
 
 Both forms of the Pallas kernels are ported: ``torch.int8`` (the default,
 every CLI path: ``csrc/gram_int8.cu``, wgmma s8 products into int32) and
-``torch.bfloat16`` (``csrc/gram_bf16.cu``, bf16 operands, float32 partial
-sums inside one color block, each block's sum added into int32).  Both
-are exact; no CLI path sets bf16, as in kspider_tpu.
+``torch.bfloat16`` (``csrc/gram_bf16.cu``, wgmma bf16 products into float32
+sums, added into int32 at least every ``BF16_SEGMENT_CHUNKS`` chunks).
+Both are exact; no CLI path sets bf16, as in kspider_tpu.
 
 Inputs keep the JAX package's transposed layout, colors contiguous:
 ``bits_t u8[NB, n_pad/8, block]`` (MSB-first) and ``wl_t i8[NB, L, block]``.
@@ -34,8 +34,7 @@ from kspider_tpu_torch.ops import pairwise as pw
 
 #: output tile edge of the CUDA kernels (``kTile`` in csrc/gram_int8.cu)
 TILE = 128
-#: colors per chunk of the int8 kernel (``kChunk`` in csrc/gram_int8.cu);
-#: the bf16 kernel's is 64
+#: colors per chunk of the int8 kernel (``kChunk`` in csrc/gram_int8.cu)
 CHUNK = 128
 #: colors per color block; the kernel needs a multiple of its chunk
 BLOCK = 1024
@@ -60,6 +59,12 @@ _FORMS = {
 #: largest color block of the bf16 form: its float32 partial sums, at most
 #: 127 per color, stay exact below 2**24
 MAX_BF16_BLOCK = 2**24 // 127
+#: colors per chunk of the bf16 kernel (``kChunk`` in csrc/gram_bf16.cu)
+BF16_CHUNK = 64
+#: chunks between two flushes of the bf16 kernel's float32 sums into int32
+#: (2,064): a partial sum is at most 127 * 64 * 2,064 = 16,776,192 < 2**24,
+#: an exact float32 integer
+BF16_SEGMENT_CHUNKS = MAX_BF16_BLOCK // BF16_CHUNK
 
 
 def pack_inputs(
@@ -172,10 +177,11 @@ def cooccurrence_tiles_plain(
     Unpacks with shifts and scales the j side by the limb.  The int8 form
     multiplies in float64 over all colors at once: every partial sum is an
     integer below 2**31 < 2**53, so the result is exact in any summation
-    order.  The bf16 form follows the bf16 kernel's dataflow: operands cast
-    through bf16, one float32 product per color block (integers below
-    2**24, exact), each added into int32.  Exact on the CPU and on the
-    card, also under TF32, which keeps integers up to 127."""
+    order.  The bf16 form follows the Pallas kernel's dataflow: operands
+    cast through bf16, one float32 product per color block (integers below
+    2**24, exact), each added into int32; the bf16 kernel flushes per
+    segment of chunks instead, to the same sums.  Exact on the CPU and on
+    the card, also under TF32, which keeps integers up to 127."""
     _check_dtype(compute_dtype, bits_i_t.shape[2])
     n_limbs = wl_t.shape[1]
     a_i = _unpack_t(bits_i_t)
@@ -242,6 +248,9 @@ def _check_kernel_args(bits_i_t, bits_j_t, wl_t, ti, tj, tile, out,
         raise ValueError(f"sample padding {npad_i}x{npad_j} is not a "
                          f"multiple of the {tile}-wide tile")
     chunk = getattr(lib, _FORMS[compute_dtype][2])()
+    if compute_dtype == torch.bfloat16 and chunk != BF16_CHUNK:
+        raise RuntimeError(f"the bf16 kernel's chunk is {chunk} colors, not "
+                           f"{BF16_CHUNK}: BF16_SEGMENT_CHUNKS is not exact")
     if block % chunk:
         raise ValueError(f"block {block} is not a multiple of the kernel's "
                          f"{chunk}-color chunk ({compute_dtype} form)")
@@ -290,12 +299,15 @@ def cooccurrence_tiles(
         tj_d = torch.tensor(tj, device=dev)
     else:
         ti_d, tj_d = _device_tiles(mode, dev)
+    # the bf16 kernel also takes its flush segment
+    segment = (BF16_SEGMENT_CHUNKS,) if compute_dtype == torch.bfloat16 else ()
     with torch.cuda.device(dev):
         rc = getattr(lib, _FORMS[compute_dtype][1])(
             bits_i_t.data_ptr(), bits_j_t.data_ptr(), wl_t.data_ptr(),
             ti_d.data_ptr(), tj_d.data_ptr(), out.data_ptr(),
             len(ti), nb, block, wl_t.shape[1], 8 * n8_i,
-            8 * bits_j_t.shape[1], torch.cuda.current_stream(dev).cuda_stream,
+            8 * bits_j_t.shape[1], *segment,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"gram kernel launch ({dtype_name} form) failed: "

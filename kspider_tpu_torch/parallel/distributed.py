@@ -8,10 +8,13 @@ them, and gloo lets several processes share one card, which NCCL refuses.
 
 The index build is embarrassingly parallel over hash ranges: every unique
 hash belongs to exactly one range, so each process groups only its range
-and the color classes concatenate without reconciliation.
+and the color classes concatenate without reconciliation.  The ranges cut
+the postings at their quantiles, not the u64 space into equal parts: a
+FracMinHash sketch's hashes all lie below 2**64 / scale, so equal parts
+would give them all to process 0.
 """
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -46,19 +49,40 @@ def process_info() -> Tuple[int, int]:
     return 0, 1
 
 
+def hash_range_bounds(
+    hash_arrays: Sequence[Optional[np.ndarray]], num_processes: int
+) -> List[int]:
+    """The ``num_processes + 1`` bounds of the processes' hash ranges: 0,
+    the k / num_processes quantiles of all postings (every hash of every
+    sample; ``None`` for a sample without hashes), 2**64.  Every process
+    holds the same hash sets, so all compute the same bounds without
+    communicating, and each range holds 1 / num_processes of the postings
+    to within the samples sharing one hash."""
+    arrays = [np.asarray(a, dtype=np.uint64) for a in hash_arrays
+              if a is not None and len(a)]
+    cuts = [0] * (num_processes - 1)
+    if arrays and num_processes > 1:
+        postings = np.concatenate(arrays)
+        kth = [k * len(postings) // num_processes
+               for k in range(1, num_processes)]
+        cuts = np.partition(postings, sorted(set(kth)))[kth].tolist()
+    return [0, *cuts, 1 << 64]
+
+
 def my_hash_range(
-    process_id: Optional[int] = None, num_processes: Optional[int] = None
+    hash_arrays: Sequence[Optional[np.ndarray]],
+    process_id: Optional[int] = None,
+    num_processes: Optional[int] = None,
 ) -> Tuple[int, int]:
-    """This process's [lo, hi) slice of the u64 hash space."""
+    """This process's [lo, hi) slice of the u64 hash space, from
+    :func:`hash_range_bounds` of ``hash_arrays``."""
     rank, world = process_info()
     if process_id is None:
         process_id = rank
     if num_processes is None:
         num_processes = world
-    width = (1 << 64) // num_processes
-    lo = process_id * width
-    hi = (1 << 64) if process_id == num_processes - 1 else lo + width
-    return lo, hi
+    bounds = hash_range_bounds(hash_arrays, num_processes)
+    return bounds[process_id], bounds[process_id + 1]
 
 
 def filter_to_range(hashes: np.ndarray, lo: int, hi: int) -> np.ndarray:

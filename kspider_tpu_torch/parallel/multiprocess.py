@@ -398,7 +398,8 @@ def distributed_pairwise_from_hash_sets(
     """Hash-range-partitioned ingest + pairwise.
 
     Each process keeps only its ``my_hash_range`` slice of every sample's
-    hashes, builds a local ColorIndex, computes its partial matrix on
+    hashes (the ranges cut all postings at their quantiles, the same in
+    every process), builds a local ColorIndex, computes its partial matrix on
     ``device`` (None: the numpy engine), and one ``all_reduce`` gives the
     exact global matrix; process 0 writes the TSVs.  The true per-group
     k-mer totals are passed through so the containments are exact."""
@@ -407,7 +408,7 @@ def distributed_pairwise_from_hash_sets(
 
     device = rank_device(device)
     pid, nproc = initialize(coordinator, num_processes, process_id)
-    lo, hi = distributed.my_hash_range(pid, nproc)
+    lo, hi = distributed.my_hash_range(hash_arrays, pid, nproc)
     full_counts: List[Optional[int]] = [
         None if a is None else len(a) for a in hash_arrays
     ]

@@ -302,6 +302,31 @@ def test_bf16_shared_kmer_matrix_matches_pallas():
     assert np.array_equal(got, jpw.shared_kmer_matrix_numpy(o, m, w, 150))
 
 
+def test_bf16_sums_past_two_to_the_24_match_pallas():
+    """128 samples, every bit set, limb 127, 2 blocks of 67,072 colors: the
+    tile's sum, 17,036,288, passes 2**24 (each block's stays below).  The
+    bf16 plain version equals the bf16 Pallas kernel and the int8 form."""
+    block = 67072
+    bits_t = np.full((2, 16, block), 255, dtype=np.uint8)
+    wl_t = np.full((2, 1, block), 127, dtype=np.int8)
+    want = np.asarray(jpp.cooccurrence_pallas(
+        bits_t, wl_t, block, 128, 1, tile=TILE,
+        compute_dtype=jax.numpy.bfloat16, interpret=True))
+    assert (want == 127 * 2 * block).all() and 127 * 2 * block > 2**24
+    ti, tj = cp.all_tiles(1, 1)
+    assert np.array_equal(run_port_bf16(bits_t, bits_t, wl_t, ti, tj, 128, 128),
+                          want)
+    assert np.array_equal(run_port(bits_t, bits_t, wl_t, ti, tj, 128, 128), want)
+
+
+def test_bf16_segment_keeps_float32_sums_exact():
+    """The bf16 kernel's flush segment: its largest partial sum stays an
+    exact float32 integer, one chunk more would not."""
+    seg_colors = cp.BF16_SEGMENT_CHUNKS * cp.BF16_CHUNK
+    assert 127 * seg_colors <= 2**24 < 127 * (seg_colors + cp.BF16_CHUNK)
+    assert cp.BF16_SEGMENT_CHUNKS == 2064
+
+
 def test_bf16_refuses_blocks_past_float32_exactness():
     assert cp.MAX_BF16_BLOCK * 127 < 2**24 <= (cp.MAX_BF16_BLOCK + 1) * 127
     block = cp.MAX_BF16_BLOCK + 1

@@ -99,17 +99,21 @@ def test_kernel_matches_plain(cuda_device, mode, max_weight, block):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
 @pytest.mark.parametrize("mode", gb.MODES)
 @pytest.mark.parametrize("shape", gb.RAGGED, ids=lambda s: "x".join(map(str, s)))
-def test_kernel_matches_plain_ragged(cuda_device, shape, mode):
+def test_kernel_matches_plain_ragged(cuda_device, shape, mode, compute_dtype):
     """gram_bench's ragged shapes, which chip_smoke.py checks too (L = 1-4,
-    in place from a random start): one launch each."""
+    in place from a random start), in both forms: each call one launch of
+    its form's kernel and no other."""
     rng = np.random.default_rng(sum(shape))
     bits_i, bits_j, wl = gb.ragged_inputs(shape, rng, cuda_device)
     bits_i, bits_j, ti, tj = gb.mode_tiles(mode, bits_i, bits_j, rng)
-    before = cp.LAUNCHES
-    assert gb.max_err(bits_i, bits_j, wl, ti, tj) == 0
-    assert cp.LAUNCHES == before + 1
+    before = dict(cp.LAUNCHES_BY_DTYPE)
+    assert gb.max_err(bits_i, bits_j, wl, ti, tj, compute_dtype) == 0
+    form = cp._FORMS[compute_dtype][0]
+    assert cp.LAUNCHES_BY_DTYPE == dict(before, **{form: before[form] + 1})
 
 
 @pytest.mark.gpu
@@ -128,6 +132,30 @@ def test_bf16_kernel_matches_plain(cuda_device, mode, max_weight, block):
                                    fn=cp.cooccurrence_tiles_plain))
     assert np.array_equal(got, run(*args, device="cpu", compute_dtype=torch.bfloat16))
     assert np.array_equal(got, run(*args, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [67072, 66048])
+def test_bf16_segment_flush_exact_at_the_largest_sums(cuda_device, block):
+    """Every bit set and every limb 127 on one 128 x 128 tile, two blocks:
+    2,096 chunks (a flush at chunk 2,064 of the item, the total 17,036,288
+    past 2**24), or exactly one segment of 2,064 (16,776,192, the largest
+    sum the kernel keeps in float32).  Float32 accumulation in the tensor
+    cores must be exact up to there."""
+    assert 2 * block // cp.BF16_CHUNK in (cp.BF16_SEGMENT_CHUNKS,
+                                          cp.BF16_SEGMENT_CHUNKS + 32)
+    bits = torch.full((2, 16, block), 255, dtype=torch.uint8, device=cuda_device)
+    wl = torch.full((2, 2, block), 127, dtype=torch.int8, device=cuda_device)
+    ti, tj = cp.all_tiles(1, 1)
+    out = {}
+    for name, fn in (("kernel", cp.cooccurrence_tiles),
+                     ("plain", cp.cooccurrence_tiles_plain)):
+        out[name] = fn(bits, bits, wl, ti, tj, tile=cp.TILE,
+                       out=torch.zeros((2, 128, 128), dtype=torch.int32,
+                                       device=cuda_device),
+                       compute_dtype=torch.bfloat16)
+    assert (out["plain"] == 127 * 2 * block).all()
+    assert torch.equal(out["kernel"], out["plain"])
 
 
 @pytest.mark.gpu

@@ -348,6 +348,44 @@ def test_native_build_paths_equal(monkeypatch):
     assert_same_index(want, t_index.build_index_from_hash_sets(names, arrays))
 
 
+@pytest.mark.parametrize("native", ["force", "off"])
+def test_consume_releases_each_batch_before_the_last_fills(monkeypatch, native):
+    """consume=True above 1 M postings copies in batches and releases each
+    batch's sources before the next is copied: the first batch's arrays
+    are None before the last batch fills.  The index is kspider_tpu's.
+    With KSPIDER_NATIVE=off the numpy copy releases one sample at a time."""
+    rng = np.random.default_rng(41)
+    universe = np.unique(rng.integers(0, 2**63, size=300_000, dtype=np.uint64))
+    arrays = [universe[rng.random(len(universe)) < 0.35] for _ in range(12)]
+    arrays[5] = None
+    assert sum(len(a) for a in arrays if a is not None) > 1_000_000
+    names = [f"g{i}" for i in range(12)]
+    want = j_index.build_index_from_hash_sets(names, arrays)
+    monkeypatch.setenv("KSPIDER_NATIVE", native)
+    monkeypatch.setattr(t_index, "FILL_BATCH_POSTINGS", 250_000)
+    sources = list(arrays)
+    released = []  # per native fill call: which sources were already None
+    real_fill = t_native.fill_postings
+
+    def fill(entries, hashes, gids):
+        released.append([a is None for a in sources])
+        real_fill(entries, hashes, gids)
+
+    monkeypatch.setattr(t_native, "fill_postings", fill)
+    assert_same_index(want, t_index.build_index_from_hash_sets(
+        names, sources, consume=True))
+    assert all(a is None for a in sources)
+    if native == "off":
+        assert released == []
+        return
+    # about 105,000 postings a sample: batches of three samples (0-2, 3, 4
+    # and 6, 7-9), then 10 and 11
+    assert released == [[g == 5 for g in range(12)],
+                        [g < 3 or g == 5 for g in range(12)],
+                        [g < 7 for g in range(12)],
+                        [g < 10 for g in range(12)]]
+
+
 @pytest.mark.parametrize("path", ["dir", "dir/", "a/b/c//", "/x/y"])
 def test_dir_prefix_of_equal(path):
     assert t_dir_prefix_of(path) == j_dir_prefix_of(path)

@@ -48,15 +48,21 @@ WORKER = textwrap.dedent(
     extra = sys.argv[6:]
     coord = f"localhost:{{port}}"
     if mode == "hashrange":
+        from kspider_tpu_torch.parallel import distributed
+
+        top = 2**64 // int(extra[0]) if extra else 2**64
         rng = np.random.default_rng(123)
         names = [f"s{{i}}" for i in range(9)]
-        pool = np.unique(rng.integers(0, 2**64, size=2000, dtype=np.uint64))
+        pool = np.unique(rng.integers(0, top, size=2000, dtype=np.uint64))
         arrays = [
             np.unique(np.concatenate([
-                rng.integers(0, 2**64, size=3000, dtype=np.uint64),
+                rng.integers(0, top, size=3000, dtype=np.uint64),
                 pool[rng.random(len(pool)) < 0.5]]))
             for _ in names
         ]
+        lo, hi = distributed.my_hash_range(arrays, pid, nproc)
+        print("HASHES", pid, sum(len(distributed.filter_to_range(a, lo, hi))
+                                 for a in arrays))
         mp.distributed_pairwise_from_hash_sets(
             names, arrays, prefix, ksize=21, device="cpu",
             coordinator=coord, num_processes=nproc, process_id=pid,
@@ -104,22 +110,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dataset():
-    """The workers' hash sets: nine samples that share a common pool."""
+def _dataset(scale=1):
+    """The workers' hash sets: nine samples that share a common pool, every
+    hash below 2**64 / scale (a FracMinHash sketch's, for scale > 1)."""
     rng = np.random.default_rng(123)
     names = [f"s{i}" for i in range(9)]
-    pool = np.unique(rng.integers(0, 2**64, size=2000, dtype=np.uint64))
+    top = 2**64 // scale
+    pool = np.unique(rng.integers(0, top, size=2000, dtype=np.uint64))
     arrays = [
         np.unique(np.concatenate([
-            rng.integers(0, 2**64, size=3000, dtype=np.uint64),
+            rng.integers(0, top, size=3000, dtype=np.uint64),
             pool[rng.random(len(pool)) < 0.5]]))
         for _ in names
     ]
     return names, arrays
 
 
-def _index():
-    names, arrays = _dataset()
+def _index(scale=1):
+    names, arrays = _dataset(scale)
     return build_index_from_hash_sets(names, arrays, ksize=21,
                                       params="kSize:21")
 
@@ -190,6 +198,27 @@ def test_hashrange_processes_match_jax_single(tmp_path, nproc):
     golden = _golden_dense(tmp_path, _index())
     prefix = str(tmp_path / "dist")
     _spawn_workers(tmp_path, "hashrange", prefix, nproc=nproc)
+    _assert_same(prefix, golden, tmp_path)
+
+
+@pytest.mark.parametrize("nproc,scale", [(2, 1000), (3, 1000), (4, 1000),
+                                         (3, 100_000)])
+def test_hash_ranges_split_scaled_sketches(tmp_path, nproc, scale):
+    """Every hash below 2**64 / scale, as a FracMinHash sketch's: each rank
+    gets its share of the postings (the even u64 split gave them all to
+    rank 0), and the TSVs equal kspider_tpu's single-process ones."""
+    names, arrays = _dataset(scale)
+    assert max(int(a.max()) for a in arrays) < 2**64 // scale
+    golden = _golden_dense(tmp_path, _index(scale))
+    prefix = str(tmp_path / "dist")
+    outs = _spawn_workers(tmp_path, "hashrange", prefix, nproc=nproc,
+                          extra=[str(scale)])
+    counts = [int(line.split()[2]) for out in outs
+              for line in out.splitlines() if line.startswith("HASHES ")]
+    total = sum(len(a) for a in arrays)
+    assert len(counts) == nproc and sum(counts) == total
+    # a quantile cut moves at most the samples sharing one hash
+    assert all(abs(c - total / nproc) <= len(arrays) + 1 for c in counts), counts
     _assert_same(prefix, golden, tmp_path)
 
 
@@ -326,19 +355,28 @@ def test_resolve_flags_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("nproc", [1, 2, 3, 7])
-def test_hash_ranges_match_jax(nproc):
+def test_hash_range_bounds_partition_the_postings(nproc):
+    """The ranges cover the u64 space, hold every posting once, about
+    1 / nproc each; kspider_tpu's range filter and merge agree."""
     rng = np.random.default_rng(nproc)
-    hashes = np.concatenate([
-        rng.integers(0, 2**64 - 1, size=5000, dtype=np.uint64, endpoint=True),
-        np.array([0, 2**63, 2**64 - 1], dtype=np.uint64)])
+    arrays = [np.unique(rng.integers(0, 2**54, size=n, dtype=np.uint64))
+              for n in rng.integers(100, 3000, size=6)]
+    arrays += [None, np.array([0, 2**63, 2**64 - 1], dtype=np.uint64)]
+    bounds = tdist.hash_range_bounds(arrays, nproc)
+    assert bounds[0] == 0 and bounds[-1] == 2**64 and bounds == sorted(bounds)
+    total = sum(len(a) for a in arrays if a is not None)
     parts = []
     for pid in range(nproc):
-        lo, hi = tdist.my_hash_range(pid, nproc)
-        assert (lo, hi) == jdist.my_hash_range(pid, nproc)
-        got = tdist.filter_to_range(hashes, lo, hi)
-        assert np.array_equal(got, jdist.filter_to_range(hashes, lo, hi))
-        parts.append(got)
-    assert np.array_equal(np.sort(np.concatenate(parts)), np.sort(hashes))
+        lo, hi = tdist.my_hash_range(arrays, pid, nproc)
+        assert (lo, hi) == (bounds[pid], bounds[pid + 1])
+        got = [tdist.filter_to_range(a, lo, hi) for a in arrays if a is not None]
+        for a, g in zip([a for a in arrays if a is not None], got):
+            assert np.array_equal(g, jdist.filter_to_range(a, lo, hi))
+        assert abs(sum(map(len, got)) - total / nproc) <= len(arrays) + 1
+        parts += got
+    assert np.array_equal(np.sort(np.concatenate(parts)),
+                          np.sort(np.concatenate([a for a in arrays
+                                                  if a is not None])))
     mats = [np.full((3, 3), p, dtype=np.int64) for p in range(nproc)]
     assert np.array_equal(tdist.merge_partial_matrices(mats),
                           jdist.merge_partial_matrices(mats))
