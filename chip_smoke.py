@@ -42,7 +42,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    dense one, and pallas and bitmask must launch the kernel;
 4f. the same collection written as .bin files and indexed by the CLI with
    and without ``--device-build --device cuda``: all five artifacts must
-   be byte-equal;
+   be byte-equal.  Then the device index build in-process
+   (``build_index_device``) on the same hash sets, whose every ColorIndex
+   field must equal the host build's (the ``[device build N=8192]`` line);
+   the device build of the N = 32,768 hash sets is no longer run;
 4g-4j. several devices and several processes on the same index, with DEVS
    the card list (``cuda:0,cuda:1,...``), or ``cuda:0,cuda:0`` (two shards
    on one card) on a one-card machine: 4g ``pairwise --device DEVS`` (the
@@ -55,16 +58,25 @@ Phases, each printed on its own line; any failure exits non-zero:
    .npz.  Every TSV must equal the dense one, step outputs the fused
    step's, every shard and every rank must launch the kernel, and no part
    file may remain.  Per-shard kernel times come from CUDA events;
+4k. the profiled dense stage: ``pairwise --device cuda`` again with
+   ``KSPIDER_PROFILE`` set.  Exactly one ``*.pt.trace.json`` must be
+   written and parse, hold one ``gram_int8_wgmma_kernel`` event per launch
+   counted and the dense engine's ``kspider.*`` ranges; the TSV must equal
+   the unprofiled one.  Prints the stage wall beside phase 4's, the
+   trace's bytes and the kernel's device ms in the trace beside phase 4's
+   CUDA-event ms;
 5. tiled path at full width: a second index of T families (N = 8 T, above
-   the dense engine's 16,384).  First the device index build of the same
-   hash sets (``build_index_device``), whose every ColorIndex field must
-   equal the host build's.  Then ``pairwise`` with no engine flag (the
+   the dense engine's 16,384).  ``pairwise`` with no engine flag (the
    automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
    ``cluster --from-index -c 0.2``.  The kernel is first held against its
    plain version, in both forms, on the path's own first diagonal and
    off-diagonal chunks.  The TSV must equal the OpenMP host engine's, both
    cluster outputs must equal scipy's and recover the families, and the
-   kernel must have run in both modes.
+   kernel must have run in both modes.  5b: the same ``pairwise`` under
+   ``KSPIDER_PROFILE`` (where kspider_tpu's nested traces raise), checked
+   as in 4k with launches in both modes and the tiled engine's ranges; its
+   trace's kernel ms is printed beside the CUDA-event ms of the unprofiled
+   stage and the ``torch.profiler`` total of the engine rerun.
 
 Neither jax nor kspider_tpu may have been imported.  Launch counts are
 reset to 0 right before each path and read right after it.  The line
@@ -103,6 +115,11 @@ CUTOFF = 0.2
 CLUSTERS_SUFFIX = f"_kSpider_clusters_{CUTOFF * 100.0}%.tsv"
 ARTIFACTS = ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
              "_color_count.bin", ".namesMap", ".extra")
+#: the ``kspider.*`` ranges each engine opens on the stage's own thread;
+#: the tiled engine's ``kspider.pack`` is opened on its pack thread, and
+#: is reported, not required
+DENSE_RANGES = ("kspider.pack", "kspider.gram", "kspider.recombine")
+TILED_RANGES = ("kspider.dispatch", "kspider.extract", "kspider.tsv")
 #: each form's kernel name in torch.profiler, its source and its tensor peak
 FORMS = {
     torch.int8: ("gram_int8_wgmma_kernel", "kspider_tpu_torch/csrc/gram_int8.cu"),
@@ -333,8 +350,10 @@ def event_ms(events):
 def gram_time_by_mode(cp, ttp, plan, dev):
     """Device time of the Gram kernel on one rerun of the tiled pairs, split
     by launch mode with CUDA events around each launch; from torch.profiler
-    its total, the device's busy time over all kernels and copies, and the
+    its total, the device's busy time over all kernels and copies (each
+    device event once: no range and no op that launched it), and the
     rerun's wall."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with launch_events(cp) as events, \
@@ -348,9 +367,10 @@ def gram_time_by_mode(cp, ttp, plan, dev):
     by_mode = {mode: (sum(1 for e in events if e[0] == mode),
                       sum(t for e, t in zip(events, ms) if e[0] == mode))
                for mode in ("upper", "all")}
-    averages = prof.key_averages()
-    prof_ms = kernel_ms(averages, torch.int8)
-    busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in averages) / 1000.0
+    prof_ms = kernel_ms(prof.key_averages(), torch.int8)
+    busy_ms = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 1000.0
     return by_mode, prof_ms, busy_ms, wall_ms
 
 
@@ -636,8 +656,9 @@ def bins_cli_phase(cli, names, arrays, workdir):
 
 
 def device_build_phase(index, names, arrays, host_build_s, dev):
-    """Phase 5a: ``build_index_device`` on the card against the host build
-    of the same hash sets; returns the walls and the build's stats."""
+    """Phase 4f, in-process: ``build_index_device`` on the card against the
+    host build of the same hash sets; returns the walls and the build's
+    stats."""
     from kspider_tpu_torch.core.index import build_index_device
 
     stats = {}
@@ -658,7 +679,61 @@ def device_build_phase(index, names, arrays, host_build_s, dev):
                                     np.asarray(getattr(index, f)))]
     phase("device index build == host build", not differ,
           f"fields differing: {differ}" if differ else f"{len(fields)} fields")
-    return dict(stats, host_s=host_build_s, device_s=device_s)
+    return dict(stats, n=len(names), host_s=host_build_s, device_s=device_s)
+
+
+def profiled_stage(cli, cp, label, prefix, prof_dir, want_tsv, ranges, modes,
+                   launches):
+    """Phases 4k and 5b: ``pairwise -i prefix --device cuda`` in-process with
+    ``KSPIDER_PROFILE=prof_dir``, the environment restored afterwards.
+    Exactly one trace must be written and parse, hold one int8 Gram kernel
+    event per counted launch (each of ``modes`` launched) and every one of
+    ``ranges``; the TSV must equal ``want_tsv``.  Prints the device's busy
+    time in the trace (kernels, copies, sets) over its window.  Returns
+    (stage wall s, trace bytes, kernel events, their summed device ms)."""
+    from kspider_tpu_torch.utils import timing
+
+    old = os.environ.get(timing.PROFILE_ENV)
+    os.environ[timing.PROFILE_ENV] = prof_dir
+    reset_counts(cp)
+    try:
+        wall = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    finally:
+        if old is None:
+            del os.environ[timing.PROFILE_ENV]
+        else:
+            os.environ[timing.PROFILE_ENV] = old
+    counts = launches[label] = read_counts(cp)
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    phase(f"{label}: one trace written", len(traces) == 1, f"{traces}")
+    try:
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    except (ValueError, KeyError) as exc:
+        phase(f"{label}: trace parses", False, repr(exc))
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and FORMS[torch.int8][0] in e.get("name", "")]
+    phase(f"{label}: one kernel event per launch",
+          len(kernels) == counts["total"] and all(counts[m] > 0 for m in modes),
+          f"{len(kernels)} events, launches {counts}")
+    names = {e.get("name") for e in events}
+    missing = [r for r in ranges if r not in names]
+    phase(f"{label}: kspider ranges in the trace", not missing,
+          f"missing {missing}" if missing else ", ".join(ranges))
+    phase(f"{label}: TSV == unprofiled TSV",
+          filecmp.cmp(prefix + "_kSpider_pairwise.tsv", want_tsv, shallow=False))
+    pack = "present" if "kspider.pack" in names else "absent"
+    spans = [e for e in events if e.get("ph") == "X"]
+    window_us = (max(e["ts"] + e["dur"] for e in spans)
+                 - min(e["ts"] for e in spans))
+    busy_us = sum(e["dur"] for e in spans
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    print(f"[{label}] trace {os.path.basename(traces[0])}: {len(events)} events, "
+          f"kspider.pack {pack}; device busy {busy_us / 1000.0:.3f} ms of the "
+          f"trace's {window_us / 1000.0:.3f} ms (idle share "
+          f"{1 - busy_us / window_us:.4f})", flush=True)
+    return (wall, os.path.getsize(traces[0]), len(kernels),
+            sum(e["dur"] for e in kernels) / 1000.0)
 
 
 def main():
@@ -710,7 +785,7 @@ def main():
     os.makedirs(args.workdir)
     rng = np.random.default_rng(args.seed)
     prefix = os.path.join(args.workdir, "smoke")
-    index, names, arrays, _ = make_index(rng, args.families, prefix)
+    index, names, arrays, host_build_s = make_index(rng, args.families, prefix)
     n = index.num_groups
     deg = index.color_degrees()
     multi = deg >= 2
@@ -781,11 +856,14 @@ def main():
     # ---- 4. dense path --------------------------------------------------
     launches = {}
     reset_counts(cp)
-    pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    with launch_events(cp) as events:
+        pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    dense_event_ms = sum(event_ms(events))
     cluster_s = run_cli(cli, "cluster", "-i", prefix, "-c", str(CUTOFF),
                         "--device", "cuda")
     launches["dense"] = read_counts(cp)
-    print(f"[dense] pairwise stage {pairwise_s:.3f} s, cluster stage "
+    print(f"[dense] pairwise stage {pairwise_s:.3f} s (Gram kernel "
+          f"{dense_event_ms:.3f} ms by CUDA events), cluster stage "
           f"{cluster_s:.3f} s, kernel launches {launches['dense']}", flush=True)
     phase("kernel launched on the dense path", launches["dense"]["upper"] > 0,
           f"{launches['dense']}")
@@ -867,8 +945,9 @@ def main():
               counts["total"] == 0 if engine == "scatter" else counts["upper"] > 0,
               f"{counts}")
 
-    # ---- 4f. index --device-build through the CLI on .bin files ----------
+    # ---- 4f. index --device-build through the CLI on .bin files, and in-process
     cli_build = bins_cli_phase(cli, names, arrays, args.workdir)
+    build = device_build_phase(index, names, arrays, host_build_s, dev)
 
     # ---- 4g-4j. several devices and several processes --------------------
     n_shards = max(2, count)
@@ -887,15 +966,22 @@ def main():
         prefix, dense_tsv, names, arrays, args.workdir,
         [f"cuda:{r}" if count >= 2 else "cuda:0" for r in range(2)], launches)
     del index, names, arrays
+
+    # ---- 4k. the profiled dense stage ------------------------------------
+    prof_dense = profiled_stage(
+        cli, cp, "profiled_dense", prefix, os.path.join(args.workdir, "prof_dense"),
+        dense_tsv, DENSE_RANGES, ("upper",), launches)
+    print(f"[profiled dense N={n}] KSPIDER_PROFILE stage {prof_dense[0]:.3f} s "
+          f"(unprofiled, phase 4: {pairwise_s:.3f} s); trace {prof_dense[1]} B; "
+          f"{prof_dense[2]} kernel events, {prof_dense[3]:.3f} ms of device time "
+          f"(phase 4: {dense_event_ms:.3f} ms by CUDA events)", flush=True)
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
 
     # ---- 5. tiled path at full width -------------------------------------
     big = os.path.join(args.workdir, "big")
-    index, names, arrays, host_build_s = make_index(rng, args.tiled_families, big)
+    index = make_index(rng, args.tiled_families, big)[0]  # hash sets freed
     n_big = index.num_groups
-    build = device_build_phase(index, names, arrays, host_build_s, dev)
-    del names, arrays
     t0 = time.perf_counter()
     plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
                                 index.color_counts, n_big, 4096)
@@ -926,10 +1012,13 @@ def main():
           f"max_abs_err={tiled_err_bf16} (exact int32 required)")
 
     reset_counts(cp)
-    pairwise_s = run_cli(cli, "pairwise", "-i", big, "--device", "cuda")
+    with launch_events(cp) as events:
+        pairwise_s = run_cli(cli, "pairwise", "-i", big, "--device", "cuda")
+    tiled_event_ms = sum(event_ms(events))
     launches["tiled"] = read_counts(cp)
-    print(f"[tiled N={n_big}] pairwise stage {pairwise_s:.3f} s, kernel "
-          f"launches {launches['tiled']}", flush=True)
+    print(f"[tiled N={n_big}] pairwise stage {pairwise_s:.3f} s (Gram kernel "
+          f"{tiled_event_ms:.3f} ms by CUDA events), kernel launches "
+          f"{launches['tiled']}", flush=True)
     phase("auto switch took the tiled path in both modes",
           launches["tiled"]["upper"] > 0 and launches["tiled"]["all"] > 0,
           f"{launches['tiled']}")
@@ -957,6 +1046,19 @@ def main():
               f"(idle share {1 - busy_ms / wall_ms:.4f})", flush=True)
     del plan
 
+    # ---- 5b. the profiled tiled stage ------------------------------------
+    unprofiled_tsv = os.path.join(args.workdir, "big_unprofiled.tsv")
+    shutil.copy(big + "_kSpider_pairwise.tsv", unprofiled_tsv)
+    prof_tiled = profiled_stage(
+        cli, cp, "profiled_tiled", big, os.path.join(args.workdir, "prof_tiled"),
+        unprofiled_tsv, TILED_RANGES, ("upper", "all"), launches)
+    os.remove(unprofiled_tsv)
+    print(f"[profiled tiled N={n_big}] KSPIDER_PROFILE stage {prof_tiled[0]:.3f} s "
+          f"(unprofiled: {pairwise_s:.3f} s); trace {prof_tiled[1]} B; "
+          f"{prof_tiled[2]} kernel events, {prof_tiled[3]:.3f} ms of device time "
+          f"(unprofiled stage: {tiled_event_ms:.3f} ms by CUDA events; engine "
+          f"rerun: torch.profiler total {fmt_ms(prof_ms)})", flush=True)
+
     big_ref = os.path.join(args.workdir, "big_ref")
     ref_engine, ref_s = host_reference_tsv(index, big_ref, big, True)
     tsv, ref_tsv = big + "_kSpider_pairwise.tsv", big_ref + "_kSpider_pairwise.tsv"
@@ -976,9 +1078,10 @@ def main():
 
     print(f"[smoke] summary: fused step {step_s:.3f} s ({step_rounds} CC "
           f"rounds); engines {engine_s}; index CLI host/device "
-          f"{cli_build[0]:.3f}/{cli_build[1]:.3f} s; N={n_big} build host "
-          f"{build['host_s']:.3f} s, device {build['device_s']:.3f} s",
-          flush=True)
+          f"{cli_build[0]:.3f}/{cli_build[1]:.3f} s; N={build['n']} build host "
+          f"{build['host_s']:.3f} s, device {build['device_s']:.3f} s; "
+          f"KSPIDER_PROFILE stages dense {prof_dense[0]:.3f} s, tiled "
+          f"{prof_tiled[0]:.3f} s", flush=True)
     print(f"[smoke] several devices ({devs}): sharded dense {sharded_s:.3f} s, "
           f"sharded step {sharded_step_s:.3f} s, tiled "
           + ", ".join(f"{k} {v:.3f} s" for k, v in tiled_devs_s.items())

@@ -26,6 +26,8 @@ import numpy as np
 
 from kspider_tpu_torch.core.index import ColorIndex
 from kspider_tpu_torch.ops import pairwise as pairwise_ops
+from kspider_tpu_torch.parallel.mesh import make_mesh
+from kspider_tpu_torch.utils.timing import profile_trace
 
 # beyond this sample count the JAX package switches to its panel-streamed
 # engine (the int64 NxN host matrix would exceed ~2 GB)
@@ -188,7 +190,9 @@ def run_pairwise(
     None: the pairs then live only in the TSV.  Otherwise ``engine``
     ("auto", "bitmask", "pallas", "scatter" or "sharded", see
     :func:`compute_shared_matrix`) computes the dense shared matrix, which
-    is returned."""
+    is returned.  With ``KSPIDER_PROFILE`` set, the matrix construction
+    (the whole streamed stage on the tiled engine; not the dense engine's
+    TSV write) runs under one ``utils.timing.profile_trace``."""
     t0 = time.perf_counter()
     if index is None:
         from kspider_tpu_torch.io import artifacts, npz_index
@@ -209,21 +213,24 @@ def run_pairwise(
         engine == "auto" and device is not None
         and index.num_groups > AUTO_TILED_THRESHOLD
     )
+    devices = [] if device is None else make_mesh(device)
     if tiled:
         from kspider_tpu_torch.ops import tiled_pairwise
 
-        n_rows = tiled_pairwise.stream_pairwise_tsv(
-            index, prefix, device="cpu" if device is None else device,
-            panel=panel, min_shared=min_shared, device_pack=device_pack,
-            echo_progress=echo_timers,
-        )
+        with profile_trace(devices):
+            n_rows = tiled_pairwise.stream_pairwise_tsv(
+                index, prefix, device="cpu" if device is None else device,
+                panel=panel, min_shared=min_shared, device_pack=device_pack,
+                echo_progress=echo_timers,
+            )
         if echo_timers:
             print(
                 f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"
             )
             print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
         return None
-    shared = compute_shared_matrix(index, device=device, engine=engine)
+    with profile_trace(devices):
+        shared = compute_shared_matrix(index, device=device, engine=engine)
     if echo_timers:
         print(
             f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"

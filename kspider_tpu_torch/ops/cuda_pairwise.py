@@ -27,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from kspider_tpu_torch.device import resolve_device
 from kspider_tpu_torch.ops import bitmask as bm
@@ -336,7 +337,10 @@ def shared_kmer_matrix_cuda(
     int32-exact super-blocks; each super-block streams ``CHUNK_BLOCKS``-block
     chunks into one device-resident ``int32[L, n_pad, n_pad]`` over the
     upper tiles, which is recombined into int64 on the device, mirrored,
-    cut to ``[:n, :n]`` and given a zero diagonal."""
+    cut to ``[:n, :n]`` and given a zero diagonal.  The three steps are
+    the ``kspider.pack`` (host pack and H2D), ``kspider.gram`` (the launch)
+    and ``kspider.recombine`` (limbs, mirror, D2H) ranges of a
+    ``torch.profiler`` trace."""
     device = resolve_device(device)
     new_offsets, new_members, new_weights = pw._drop_singletons(
         np.asarray(offsets, dtype=np.int64), np.asarray(members, dtype=np.int32),
@@ -359,16 +363,20 @@ def shared_kmer_matrix_cuda(
         acc.zero_()
         for cs in range(start, stop, chunk_colors):
             ce = min(cs + chunk_colors, stop)
-            sl_off = new_offsets[cs : ce + 1] - new_offsets[cs]
-            sl_mem = new_members[new_offsets[cs] : new_offsets[ce]]
-            bits_t, wl_t = pack_inputs(sl_off, sl_mem, w_limbs[cs:ce], n_pad, block)
-            bits = torch.from_numpy(bits_t).to(device)
-            cooccurrence_tiles(
-                bits, bits, torch.from_numpy(wl_t).to(device), ti, tj,
-                tile=TILE, out=acc, compute_dtype=compute_dtype,
-            )
-        for l in range(n_limbs):
-            total.add_(acc[l], alpha=128**l)
-    s = mirror_upper_tiles(total, TILE)[:n, :n]
-    s.fill_diagonal_(0)
-    return s.cpu().numpy()
+            with record_function("kspider.pack"):
+                sl_off = new_offsets[cs : ce + 1] - new_offsets[cs]
+                sl_mem = new_members[new_offsets[cs] : new_offsets[ce]]
+                bits_t, wl_t = pack_inputs(sl_off, sl_mem, w_limbs[cs:ce],
+                                           n_pad, block)
+                bits = torch.from_numpy(bits_t).to(device)
+                wl = torch.from_numpy(wl_t).to(device)
+            with record_function("kspider.gram"):
+                cooccurrence_tiles(bits, bits, wl, ti, tj, tile=TILE, out=acc,
+                                   compute_dtype=compute_dtype)
+        with record_function("kspider.recombine"):
+            for l in range(n_limbs):
+                total.add_(acc[l], alpha=128**l)
+    with record_function("kspider.recombine"):
+        s = mirror_upper_tiles(total, TILE)[:n, :n]
+        s.fill_diagonal_(0)
+        return s.cpu().numpy()

@@ -48,11 +48,13 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
 from kspider_tpu_torch.parallel.mesh import make_mesh
+from kspider_tpu_torch.utils.timing import profile_trace
 
 #: panel pairs dispatched ahead of the one being extracted, on one device
 #: or with per-pair sharding; pair-parallel runs keep max(2, devices)
@@ -594,7 +596,8 @@ def iter_panel_pairs(
 
     def timed_prepare(p: int):
         t0 = time.perf_counter()
-        out = prepare(p)
+        with record_function("kspider.pack"):
+            out = prepare(p)
         return out, time.perf_counter() - t0
 
     # ---- dispatch thread: every device operation -------------------------
@@ -684,13 +687,15 @@ def iter_panel_pairs(
                 fut = ex.submit(timed_prepare, p + 1)
             t0 = time.perf_counter()
             device = devices[p % len(devices)] if pair_parallel else devices[0]
-            pending.append((pi, pj, dispatch(pi, pj, chunks, device)))
+            with record_function("kspider.dispatch"):
+                pending.append((pi, pj, dispatch(pi, pj, chunks, device)))
             del chunks
             t_dispatch += time.perf_counter() - t0
             while len(pending) > inflight or (p + 1 == n_pairs and pending):
                 t0 = time.perf_counter()
                 done = pending.popleft()
-                out = extract(*done)
+                with record_function("kspider.extract"):
+                    out = extract(*done)
                 t_extract += time.perf_counter() - t0
                 if out is not None:
                     yield done[0], done[1], *out
@@ -730,7 +735,11 @@ def stream_pairwise_tsv(
     and none on the CPU or on a device list, as kspider_tpu keeps it off on
     several devices; pass 0 to force it off, or a byte budget.  Pass a
     dict as ``stats`` (or set ``echo_progress``) for the stage breakdown:
-    pack (host, overlapped), dispatch, extract (device wait + D2H), tsv."""
+    pack (host, overlapped), dispatch, extract (device wait + D2H), tsv;
+    the same stages are ``kspider.*`` ranges in a ``torch.profiler`` trace.
+    With ``KSPIDER_PROFILE`` set, the panel loop and its last flush run
+    under ``utils.timing.profile_trace`` (a no-op inside another one, as
+    under ``core.pairwise.run_pairwise``)."""
     from kspider_tpu_torch.core.pairwise import write_pairwise_rows_coo
 
     devices = make_mesh(device)
@@ -776,13 +785,14 @@ def stream_pairwise_tsv(
         if not buf_i:
             return
         t0 = time.perf_counter()
-        gi = np.concatenate(buf_i)
-        gj = np.concatenate(buf_j)
-        sv = np.concatenate(buf_v)
-        order = np.lexsort((gj, gi))
-        write_pairwise_rows_coo(
-            path, gi[order], gj[order], sv[order], counts, header=first
-        )
+        with record_function("kspider.tsv"):
+            gi = np.concatenate(buf_i)
+            gj = np.concatenate(buf_j)
+            sv = np.concatenate(buf_v)
+            order = np.lexsort((gj, gi))
+            write_pairwise_rows_coo(
+                path, gi[order], gj[order], sv[order], counts, header=first
+            )
         first = False
         total += len(gi)
         buf_i.clear()
@@ -790,19 +800,20 @@ def stream_pairwise_tsv(
         buf_v.clear()
         t_tsv += time.perf_counter() - t0
 
-    for pi, pj, gi, gj, vals in iter_panel_pairs(
-        plan, device=devices, block=block, min_shared=min_shared,
-        cache_bytes=cache_bytes, stats=run_stats, device_pack=device_pack,
-    ):
-        if pi != current_row:
-            flush()
-            current_row = pi
-            if echo_progress:
-                print(f"  panel row {pi + 1}/{plan.n_panels}", flush=True)
-        buf_i.append(gi)
-        buf_j.append(gj)
-        buf_v.append(vals)
-    flush()
+    with profile_trace(devices):
+        for pi, pj, gi, gj, vals in iter_panel_pairs(
+            plan, device=devices, block=block, min_shared=min_shared,
+            cache_bytes=cache_bytes, stats=run_stats, device_pack=device_pack,
+        ):
+            if pi != current_row:
+                flush()
+                current_row = pi
+                if echo_progress:
+                    print(f"  panel row {pi + 1}/{plan.n_panels}", flush=True)
+            buf_i.append(gi)
+            buf_j.append(gj)
+            buf_v.append(vals)
+        flush()
     if first:  # no pairs at all: still write the header
         write_pairwise_rows_coo(
             path,

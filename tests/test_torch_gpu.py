@@ -11,10 +11,14 @@ The plain version is held against kspider_tpu's Pallas kernels on the CPU
 in tests/test_torch_cuda_pairwise.py, and the panel-streamed engine and the
 torch device pack against kspider_tpu's in tests/test_torch_tiled_pairwise.py
 and tests/test_torch_device_pack.py; the device index build, the fused
-step and the scatter engine in tests/test_torch_{device_build,step,scatter}.py.
+step and the scatter engine in tests/test_torch_{device_build,step,scatter}.py,
+and the ``KSPIDER_PROFILE`` trace in tests/test_torch_profile.py.
 Here the same code runs on the card and must equal its CPU run, numpy or
 scipy.  Tolerance: exact equality.
 """
+
+import glob
+import json
 
 import numpy as np
 import pytest
@@ -387,3 +391,41 @@ def test_iter_panel_pairs_two_devices_equals_one(cuda_device, panel,
     for x, g in zip(want, got):
         for a, b in zip(x[2:], g[2:]):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["auto", "tiled"])
+def test_profiled_run_pairwise_traces_every_launch(cuda_device, tmp_path,
+                                                   monkeypatch, engine):
+    """``KSPIDER_PROFILE`` on the card: one trace, holding one
+    ``gram_int8_wgmma_kernel`` event per launch the counter counted (upper
+    tiles on the dense engine, both modes on the tiled one); the TSV is the
+    unprofiled one."""
+    from kspider_tpu_torch.core import pairwise as tcore
+    from kspider_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(41)
+    n = 700
+    o, m, w = random_csr(rng, 3000, n, 12, 40000)
+    index = _Index(o, m, w, n, rng.integers(1, 100000, size=n))
+    monkeypatch.delenv(timing.PROFILE_ENV, raising=False)
+    tcore.run_pairwise(str(tmp_path / "plain"), index, device=cuda_device,
+                       engine=engine, panel=256, echo_timers=False)
+    prof = tmp_path / "prof"
+    monkeypatch.setenv(timing.PROFILE_ENV, str(prof))
+    before, by_mode = cp.LAUNCHES, dict(cp.LAUNCHES_BY_MODE)
+    tcore.run_pairwise(str(tmp_path / "traced"), index, device=cuda_device,
+                       engine=engine, panel=256, echo_timers=False)
+    launched = cp.LAUNCHES - before
+    traces = glob.glob(str(prof / "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "gram_int8_wgmma_kernel" in e.get("name", "")]
+    assert launched > 0 and len(kernels) == launched
+    modes = ("upper", "all") if engine == "tiled" else ("upper",)
+    assert all(cp.LAUNCHES_BY_MODE[k] > by_mode[k] for k in modes)
+    with open(str(tmp_path / "plain") + "_kSpider_pairwise.tsv", "rb") as a, \
+            open(str(tmp_path / "traced") + "_kSpider_pairwise.tsv", "rb") as b:
+        assert a.read() == b.read()
