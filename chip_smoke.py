@@ -57,14 +57,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    and ``distributed_pairwise_from_hash_sets`` on the hash sets saved to an
    .npz.  Every TSV must equal the dense one, step outputs the fused
    step's, every shard and every rank must launch the kernel, and no part
-   file may remain.  Per-shard kernel times come from CUDA events;
+   file may remain.  The per-shard kernel time is ``gram_bench``'s NB 97
+   shape, not timed here;
 4k. the profiled dense stage: ``pairwise --device cuda`` again with
    ``KSPIDER_PROFILE`` set.  Exactly one ``*.pt.trace.json`` must be
    written and parse, hold one ``gram_int8_wgmma_kernel`` event per launch
    counted and the dense engine's ``kspider.*`` ranges; the TSV must equal
    the unprofiled one.  Prints the stage wall beside phase 4's, the
-   trace's bytes and the kernel's device ms in the trace beside phase 4's
-   CUDA-event ms;
+   trace's bytes and the kernel's device ms in the trace beside the
+   ``torch.profiler`` ms of phase 4's matrix product;
 5. tiled path at full width: a second index of T families (N = 8 T, above
    the dense engine's 16,384).  ``pairwise`` with no engine flag (the
    automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
@@ -72,11 +73,25 @@ Phases, each printed on its own line; any failure exits non-zero:
    plain version, in both forms, on the path's own first diagonal and
    off-diagonal chunks.  The TSV must equal the OpenMP host engine's, both
    cluster outputs must equal scipy's and recover the families, and the
-   kernel must have run in both modes.  5b: the same ``pairwise`` under
-   ``KSPIDER_PROFILE`` (where kspider_tpu's nested traces raise), checked
-   as in 4k with launches in both modes and the tiled engine's ranges; its
-   trace's kernel ms is printed beside the CUDA-event ms of the unprofiled
-   stage and the ``torch.profiler`` total of the engine rerun.
+   kernel must have run in both modes.  The engine is then rerun without
+   the TSV under ``torch.profiler`` (``gram_time_by_mode``): kernel ms by
+   mode, the device's busy time and idle share, and the pipeline
+   (``pipeline_report``): per pair the host waits
+   (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
+   ``cudaEventSynchronize``) inside ``kspider.dispatch`` and
+   ``kspider.extract``, the H2D bytes from pinned and from pageable memory
+   and the H2D time under a Gram kernel; a stream or device drain in either
+   range, or a pageable H2D copy, fails the phase.  5b: the same
+   ``pairwise`` under ``KSPIDER_PROFILE`` (where kspider_tpu's nested
+   traces raise), checked as in 4k with launches in both modes and the
+   tiled engine's ranges, and its trace read by ``pipeline_report`` (a
+   drain fails the phase); its kernel ms is printed beside the engine
+   rerun's.
+
+Every path-level kernel time is the device's own, from ``torch.profiler``:
+CUDA events around a launch also bracket the host's launch path whenever
+the device waits for the host.  Phase 3 times each case over many
+back-to-back launches with CUDA events (``gram_bench.measure``).
 
 Neither jax nor kspider_tpu may have been imported.  Launch counts are
 reset to 0 right before each path and read right after it.  The line
@@ -316,62 +331,106 @@ def sync_all():
         torch.cuda.synchronize(i)
 
 
-@contextlib.contextmanager
-def launch_events(cp):
-    """CUDA events around every launch of the Gram kernel inside the block,
-    on the launching device's stream: yields a list of (mode, start, end),
-    mode "upper" (one side) or "all" (two sides)."""
-    real = cp.cooccurrence_tiles
-    events = []
-
-    def timed(bits_i, bits_j, wl, ti, tj, *, tile, out, **kw):
-        stream = torch.cuda.current_stream(bits_i.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        real(bits_i, bits_j, wl, ti, tj, tile=tile, out=out, **kw)
-        end.record(stream)
-        events.append(("upper" if bits_j is bits_i else "all", start, end))
-        return out
-
-    cp.cooccurrence_tiles = timed
-    try:
-        yield events
-    finally:
-        cp.cooccurrence_tiles = real
+def trace_summary(events):
+    """Events by category, the device events' names and the time spans of
+    host and device events: the detail of a failed kernel-event count."""
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    host = [e["ts"] for e in events if e.get("cat") == "cuda_runtime"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy")]
+    names = sorted({e.get("name", "")[:40] for e in device})[:6]
+    span = (lambda ts: f"{min(ts):.0f}-{max(ts):.0f}" if ts else "none")
+    return (f"categories {cats}; device names {names}; runtime calls at "
+            f"{span(host)} us, device events at "
+            f"{span([e['ts'] for e in device])} us")
 
 
-def event_ms(events):
-    """Per-launch kernel ms of ``launch_events``, in launch order."""
-    sync_all()
-    return [start.elapsed_time(end) for _, start, end in events]
+def pipeline_report(label, events, require_pinned):
+    """The tiled engine's pipeline in a trace (``timing.pipeline_numbers``):
+    per pair, the host waits inside ``kspider.dispatch`` and
+    ``kspider.extract``, the H2D bytes from pinned and from pageable
+    memory, and the H2D time that overlaps a Gram kernel.  Fails the phase
+    on a ``cudaStreamSynchronize`` or ``cudaDeviceSynchronize`` in either
+    range, and with ``require_pinned`` on any pageable H2D.  Returns the
+    numbers."""
+    from kspider_tpu_torch.utils import timing
+
+    report = timing.pipeline_numbers(events, FORMS[torch.int8][0],
+                                     TILED_RANGES[:2])
+    waits = report["waits"]
+    drains = {}
+    for name, per in waits.items():
+        counts = {call: [w[call] for w in per] for call in timing.HOST_WAITS}
+        print(f"[{label}] {name}: {len(per)} ranges (one per pair); "
+              + ", ".join(f"{call} {sum(c)} (per pair {min(c, default=0)}-"
+                          f"{max(c, default=0)})" for call, c in counts.items()),
+              flush=True)
+        drains.update({f"{name} {call}": sum(counts[call])
+                       for call in timing.HOST_WAITS[:2] if sum(counts[call])})
+    print(f"[{label}] H2D: {report['h2d_pinned_bytes']} B from pinned memory, "
+          f"{report['h2d_pageable_bytes']} B from pageable memory; "
+          f"{report['h2d_ms']:.3f} ms of copies, "
+          f"{report['h2d_under_kernels_ms']:.3f} ms of it under a kernel",
+          flush=True)
+    phase(f"{label}: no stream or device drain in dispatch or extract",
+          not drains and all(waits.values()), f"{drains}" if drains else
+          f"{len(waits['kspider.dispatch'])} pairs")
+    if require_pinned:
+        phase(f"{label}: every H2D copy from pinned memory",
+              report["h2d_pinned_bytes"] > 0
+              and report["h2d_pageable_bytes"] == 0,
+              f"{report['h2d_pageable_bytes']} B pageable")
+    return report
 
 
-def gram_time_by_mode(cp, ttp, plan, dev):
-    """Device time of the Gram kernel on one rerun of the tiled pairs, split
-    by launch mode with CUDA events around each launch; from torch.profiler
-    its total, the device's busy time over all kernels and copies (each
-    device event once: no range and no op that launched it), and the
-    rerun's wall."""
-    from torch.autograd import DeviceType
+def gram_time_by_mode(cp, ttp, plan, dev, workdir):
+    """One rerun of the tiled pairs, no TSV, under ``torch.profiler``: the
+    Gram kernel's device time by launch mode (kernel events in launch order,
+    by correlation id, beside the mode of each launch) and in total, the
+    device's busy time, the rerun's wall and its :func:`pipeline_report`.
+    The kernel times are the device's own, not CUDA events around a launch,
+    which also bracket the host's launch path whenever the device waits for
+    the host."""
     from torch.profiler import ProfilerActivity, profile
 
-    with launch_events(cp) as events, \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
-            pass
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1000.0
-    ms = event_ms(events)
-    by_mode = {mode: (sum(1 for e in events if e[0] == mode),
-                      sum(t for e, t in zip(events, ms) if e[0] == mode))
+    real = cp.cooccurrence_tiles
+    modes = []
+
+    def recorded(bits_i, bits_j, *args, **kw):
+        modes.append("upper" if bits_j is bits_i else "all")
+        return real(bits_i, bits_j, *args, **kw)
+
+    cp.cooccurrence_tiles = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
+                pass
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+    finally:
+        cp.cooccurrence_tiles = real
+    path = os.path.join(workdir, "engine_rerun.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and FORMS[torch.int8][0] in e.get("name", "")),
+                     key=lambda e: (e.get("args", {}).get("correlation", 0), e["ts"]))
+    ok = len(kernels) == len(modes)
+    phase("tiled engine rerun: one kernel event per launch", ok,
+          f"{len(kernels)} events, {len(modes)} launches"
+          + ("" if ok else f"; {trace_summary(events)}"))
+    by_mode = {mode: (modes.count(mode),
+                      sum(e["dur"] for m, e in zip(modes, kernels) if m == mode)
+                      / 1000.0)
                for mode in ("upper", "all")}
-    prof_ms = kernel_ms(prof.key_averages(), torch.int8)
-    busy_ms = sum(e.device_time_total for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)) / 1000.0
-    return by_mode, prof_ms, busy_ms, wall_ms
+    report = pipeline_report("tiled engine rerun", events, True)
+    return (by_mode, sum(t for _, t in by_mode.values()), report["busy_ms"],
+            wall_ms, report)
 
 
 def step_blocks(index):
@@ -435,28 +494,24 @@ def fused_step_phase(blocks, dense_shared, dev, cp, launches):
 
 def sharded_dense_phase(cli, cp, prefix, dense_tsv, devs, n_shards, launches):
     """Phase 4g: ``pairwise --device DEVS``, the dense engine's color blocks
-    split over the shards; returns (wall s, per-launch kernel ms)."""
+    split over the shards; returns the wall s."""
     reset_counts(cp)
-    with launch_events(cp) as events:
-        wall = run_cli(cli, "pairwise", "-i", prefix, "--device", devs)
+    wall = run_cli(cli, "pairwise", "-i", prefix, "--device", devs)
     launches["sharded"] = read_counts(cp)
-    ms = event_ms(events)
     print(f"[sharded N=8192] pairwise --device {devs}: stage {wall:.3f} s, "
-          f"kernel launches {launches['sharded']}, per-shard kernel ms "
-          f"{[round(t, 3) for t in ms]}", flush=True)
+          f"kernel launches {launches['sharded']}", flush=True)
     phase("sharded dense TSV == dense TSV",
           filecmp.cmp(prefix + "_kSpider_pairwise.tsv", dense_tsv, shallow=False))
     phase("sharded dense launched every shard",
           launches["sharded"]["upper"] >= n_shards, f"{launches['sharded']}")
-    return wall, ms
+    return wall
 
 
 def sharded_step_phase(blocks, step_shared, step_labels, devs, n_shards, cp,
                        launches):
     """Phase 4h: ``sharded_step`` over the blocks of phase 4d, padded with
     empty blocks to a multiple of the shard count; ``shared`` and
-    ``labels`` must equal ``single_device_step``'s.  Returns (wall s,
-    per-shard kernel ms)."""
+    ``labels`` must equal ``single_device_step``'s.  Returns the wall s."""
     from kspider_tpu_torch.parallel import step
 
     bits, wl, counts, block, n_pad, n_limbs = blocks
@@ -466,17 +521,14 @@ def sharded_step_phase(blocks, step_shared, step_labels, devs, n_shards, cp,
     reset_counts(cp)
     sync_all()
     t0 = time.perf_counter()
-    with launch_events(cp) as events:
-        shared, labels = step.sharded_step(devs, bits, wl, counts, CUTOFF, block,
-                                           n_pad, n_limbs)
-        sync_all()
+    shared, labels = step.sharded_step(devs, bits, wl, counts, CUTOFF, block,
+                                       n_pad, n_limbs)
+    sync_all()
     wall = time.perf_counter() - t0
     launches["sharded_step"] = read_counts(cp)
-    ms = event_ms(events)
     print(f"[sharded step N={len(counts)}] sharded_step over {devs}: "
           f"{bits.shape[0]} blocks, {wall:.3f} s (H2D included), kernel "
-          f"launches {launches['sharded_step']}, per-shard kernel ms "
-          f"{[round(t, 3) for t in ms]}", flush=True)
+          f"launches {launches['sharded_step']}", flush=True)
     phase("sharded step launched every shard",
           launches["sharded_step"]["upper"] == n_shards,
           f"{launches['sharded_step']}")
@@ -484,7 +536,7 @@ def sharded_step_phase(blocks, step_shared, step_labels, devs, n_shards, cp,
           np.array_equal(shared.cpu().numpy(), step_shared))
     phase("sharded step labels == single_device_step",
           np.array_equal(labels.cpu().numpy(), step_labels))
-    return wall, ms
+    return wall
 
 
 def tiled_devices_phase(cli, cp, prefix, dense_tsv, devs, n_shards, launches):
@@ -713,9 +765,10 @@ def profiled_stage(cli, cp, label, prefix, prof_dir, want_tsv, ranges, modes,
         phase(f"{label}: trace parses", False, repr(exc))
     kernels = [e for e in events if e.get("cat") == "kernel"
                and FORMS[torch.int8][0] in e.get("name", "")]
-    phase(f"{label}: one kernel event per launch",
-          len(kernels) == counts["total"] and all(counts[m] > 0 for m in modes),
-          f"{len(kernels)} events, launches {counts}")
+    ok = len(kernels) == counts["total"] and all(counts[m] > 0 for m in modes)
+    phase(f"{label}: one kernel event per launch", ok,
+          f"{len(kernels)} events, launches {counts}"
+          + ("" if ok else f"; {trace_summary(events)}"))
     names = {e.get("name") for e in events}
     missing = [r for r in ranges if r not in names]
     phase(f"{label}: kspider ranges in the trace", not missing,
@@ -724,14 +777,16 @@ def profiled_stage(cli, cp, label, prefix, prof_dir, want_tsv, ranges, modes,
           filecmp.cmp(prefix + "_kSpider_pairwise.tsv", want_tsv, shallow=False))
     pack = "present" if "kspider.pack" in names else "absent"
     spans = [e for e in events if e.get("ph") == "X"]
-    window_us = (max(e["ts"] + e["dur"] for e in spans)
-                 - min(e["ts"] for e in spans))
-    busy_us = sum(e["dur"] for e in spans
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    window_ms = (max(e["ts"] + e["dur"] for e in spans)
+                 - min(e["ts"] for e in spans)) / 1000.0
+    busy_ms = timing.union_ms([(e["ts"], e["dur"]) for e in spans if e.get("cat")
+                               in ("kernel", "gpu_memcpy", "gpu_memset")])
     print(f"[{label}] trace {os.path.basename(traces[0])}: {len(events)} events, "
-          f"kspider.pack {pack}; device busy {busy_us / 1000.0:.3f} ms of the "
-          f"trace's {window_us / 1000.0:.3f} ms (idle share "
-          f"{1 - busy_us / window_us:.4f})", flush=True)
+          f"kspider.pack {pack}; device busy {busy_ms:.3f} ms of the "
+          f"trace's {window_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / window_ms:.4f})", flush=True)
+    if ranges == TILED_RANGES:
+        pipeline_report(label, events, False)
     return (wall, os.path.getsize(traces[0]), len(kernels),
             sum(e["dur"] for e in kernels) / 1000.0)
 
@@ -856,14 +911,11 @@ def main():
     # ---- 4. dense path --------------------------------------------------
     launches = {}
     reset_counts(cp)
-    with launch_events(cp) as events:
-        pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
-    dense_event_ms = sum(event_ms(events))
+    pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
     cluster_s = run_cli(cli, "cluster", "-i", prefix, "-c", str(CUTOFF),
                         "--device", "cuda")
     launches["dense"] = read_counts(cp)
-    print(f"[dense] pairwise stage {pairwise_s:.3f} s (Gram kernel "
-          f"{dense_event_ms:.3f} ms by CUDA events), cluster stage "
+    print(f"[dense] pairwise stage {pairwise_s:.3f} s, cluster stage "
           f"{cluster_s:.3f} s, kernel launches {launches['dense']}", flush=True)
     phase("kernel launched on the dense path", launches["dense"]["upper"] > 0,
           f"{launches['dense']}")
@@ -876,8 +928,9 @@ def main():
             index.color_offsets, index.color_members, index.color_counts, n,
             device=dev)
         torch.cuda.synchronize()
+    dense_prof_ms = kernel_ms(prof.key_averages(), torch.int8)
     print(f"[dense] Gram kernel time in one pairwise product: "
-          f"{fmt_ms(kernel_ms(prof.key_averages(), torch.int8))}", flush=True)
+          f"{fmt_ms(dense_prof_ms)}", flush=True)
 
     ref_prefix = os.path.join(args.workdir, "ref")
     ref_engine, ref_s = host_reference_tsv(index, ref_prefix, prefix, False)
@@ -955,9 +1008,9 @@ def main():
         else "cuda:0,cuda:0"
     print(f"[devices] DEVS={devs}: {n_shards} shards on {count} card(s); on one "
           "card these phases measure overhead, not scaling", flush=True)
-    sharded_s, shard_ms = sharded_dense_phase(cli, cp, prefix, dense_tsv, devs,
-                                              n_shards, launches)
-    sharded_step_s, step_shard_ms = sharded_step_phase(
+    sharded_s = sharded_dense_phase(cli, cp, prefix, dense_tsv, devs,
+                                    n_shards, launches)
+    sharded_step_s = sharded_step_phase(
         blocks, step_shared, step_labels, devs, n_shards, cp, launches)
     del blocks, step_shared, step_labels
     tiled_devs_s = tiled_devices_phase(cli, cp, prefix, dense_tsv, devs,
@@ -974,7 +1027,8 @@ def main():
     print(f"[profiled dense N={n}] KSPIDER_PROFILE stage {prof_dense[0]:.3f} s "
           f"(unprofiled, phase 4: {pairwise_s:.3f} s); trace {prof_dense[1]} B; "
           f"{prof_dense[2]} kernel events, {prof_dense[3]:.3f} ms of device time "
-          f"(phase 4: {dense_event_ms:.3f} ms by CUDA events)", flush=True)
+          f"(phase 4's product: {fmt_ms(dense_prof_ms)} by torch.profiler)",
+          flush=True)
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
 
@@ -1012,13 +1066,16 @@ def main():
           f"max_abs_err={tiled_err_bf16} (exact int32 required)")
 
     reset_counts(cp)
-    with launch_events(cp) as events:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
         pairwise_s = run_cli(cli, "pairwise", "-i", big, "--device", "cuda")
-    tiled_event_ms = sum(event_ms(events))
+    sys.stdout.write(out.getvalue())
     launches["tiled"] = read_counts(cp)
-    print(f"[tiled N={n_big}] pairwise stage {pairwise_s:.3f} s (Gram kernel "
-          f"{tiled_event_ms:.3f} ms by CUDA events), kernel launches "
-          f"{launches['tiled']}", flush=True)
+    breakdown = [line.strip() for line in out.getvalue().splitlines()
+                 if "stage breakdown" in line]
+    print(f"[tiled N={n_big}] pairwise stage {pairwise_s:.3f} s, kernel "
+          f"launches {launches['tiled']}; {breakdown[-1] if breakdown else ''}",
+          flush=True)
     phase("auto switch took the tiled path in both modes",
           launches["tiled"]["upper"] > 0 and launches["tiled"]["all"] > 0,
           f"{launches['tiled']}")
@@ -1036,7 +1093,8 @@ def main():
     phase("cluster --from-index launched both modes",
           launches["from_index"]["upper"] > 0 and launches["from_index"]["all"] > 0)
 
-    by_mode, prof_ms, busy_ms, wall_ms = gram_time_by_mode(cp, ttp, plan, dev)
+    by_mode, prof_ms, busy_ms, wall_ms, rerun = gram_time_by_mode(
+        cp, ttp, plan, dev, args.workdir)
     print(f"[tiled N={n_big}] Gram kernel device time on the tiled pairs: "
           + ", ".join(f"{m} {c} launches {t:.3f} ms" for m, (c, t) in by_mode.items())
           + f"; torch.profiler total {fmt_ms(prof_ms)}", flush=True)
@@ -1056,8 +1114,7 @@ def main():
     print(f"[profiled tiled N={n_big}] KSPIDER_PROFILE stage {prof_tiled[0]:.3f} s "
           f"(unprofiled: {pairwise_s:.3f} s); trace {prof_tiled[1]} B; "
           f"{prof_tiled[2]} kernel events, {prof_tiled[3]:.3f} ms of device time "
-          f"(unprofiled stage: {tiled_event_ms:.3f} ms by CUDA events; engine "
-          f"rerun: torch.profiler total {fmt_ms(prof_ms)})", flush=True)
+          f"(engine rerun: torch.profiler total {fmt_ms(prof_ms)})", flush=True)
 
     big_ref = os.path.join(args.workdir, "big_ref")
     ref_engine, ref_s = host_reference_tsv(index, big_ref, big, True)
@@ -1125,8 +1182,6 @@ def main():
                               sum(c["total"] for c in launches.values()),
                               max_err, int8_rows)
     int8_entry["launches_by_path"] = launches
-    int8_entry["shard_ms"] = {"devices": devs, "sharded": shard_ms,
-                              "sharded_step": step_shard_ms}
     print(json.dumps({"kernels": [
         int8_entry,
         kernel_entry("gram_bf16_tiles", torch.bfloat16, bf16_launches,

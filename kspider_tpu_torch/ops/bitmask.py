@@ -211,47 +211,59 @@ def _sentinel_tail(k: torch.Tensor, count: int, total: int) -> torch.Tensor:
     return torch.where(iota < count, k, total + (iota - count))
 
 
+def _on_device(x, device) -> torch.Tensor:
+    """A device tensor of ``x``, as int64: a tensor is used where it lies; a
+    numpy array is moved to ``device`` (CUDA: through pinned memory with
+    ``non_blocking=True``, on the current stream, which drains nothing)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True).to(torch.int64)
+
+
 def scatter_pack_device(
-    keys: np.ndarray, n_blocks: int, block: int, panel_pad: int, *, device
+    keys, n_blocks: int, block: int, panel_pad: int, *, device=None
 ) -> torch.Tensor:
-    """Packed bitmask blocks built on ``device`` from sorted posting keys.
+    """Packed bitmask blocks built on the device from sorted posting keys.
 
     ``keys`` i32: ``seg * panel_pad + member`` per posting, strictly
     increasing; values at or past ``n_blocks * block * panel_pad`` are
-    padding and dropped.  Returns u8[n_blocks, panel_pad/8, block], the
-    kernel's layout, equal bit for bit to the transposed
-    ``pack_bitmask_blocks``."""
-    k = torch.from_numpy(np.asarray(keys)).to(device).to(torch.int64)
-    return _pack_keys(k, n_blocks, block, panel_pad)
+    padding and dropped.  A tensor is packed on its own device; a numpy
+    array is moved to ``device`` first (:func:`_on_device`).  Returns
+    u8[n_blocks, panel_pad/8, block], the kernel's layout, equal bit for
+    bit to the transposed ``pack_bitmask_blocks``."""
+    return _pack_keys(_on_device(keys, device), n_blocks, block, panel_pad)
 
 
 def scatter_pack_device_delta(
-    first: int, deltas: np.ndarray, count: int, n_blocks: int, block: int,
-    panel_pad: int, *, device,
+    first: int, deltas, count: int, n_blocks: int, block: int,
+    panel_pad: int, *, device=None,
 ) -> torch.Tensor:
     """:func:`scatter_pack_device` over ``delta_encode_keys`` output:
     ``first + cumsum(i16 deltas)`` decoded on the device."""
-    d = torch.from_numpy(np.asarray(deltas)).to(device).to(torch.int64)
+    d = _on_device(deltas, device)
     k = int(first) + torch.cumsum(d, 0)
     k = _sentinel_tail(k, int(count), n_blocks * block * panel_pad)
     return _pack_keys(k, n_blocks, block, panel_pad)
 
 
 def scatter_pack_device_delta8(
-    first: int, d8: np.ndarray, exceptions: np.ndarray, count: int,
-    n_blocks: int, block: int, panel_pad: int, *, device,
+    first: int, d8, exceptions, count: int,
+    n_blocks: int, block: int, panel_pad: int, *, device=None,
 ) -> torch.Tensor:
     """:func:`scatter_pack_device` over ``delta_encode_keys_u8`` output.
 
     A 0 byte takes the next exception (a running count of escapes indexes
     the exception array), position 0 is forced to delta 0, then one cumsum
     rebuilds the keys."""
-    di = torch.from_numpy(np.asarray(d8)).to(device).to(torch.int64)
-    exc = torch.from_numpy(np.asarray(exceptions)).to(device).to(torch.int64)
+    di = _on_device(d8, device)
+    exc = _on_device(exceptions, device)
     is_esc = di == 0
     eidx = torch.cumsum(is_esc.to(torch.int64), 0) - 1
     d = torch.where(is_esc, exc[eidx.clamp(0, exc.shape[0] - 1)], di)
-    d[0] = 0
+    d[:1].zero_()  # a fill on the device: ``d[0] = 0`` would copy from the host
     k = int(first) + torch.cumsum(d, 0)
     k = _sentinel_tail(k, int(count), n_blocks * block * panel_pad)
     return _pack_keys(k, n_blocks, block, panel_pad)

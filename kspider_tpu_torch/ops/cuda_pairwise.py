@@ -127,11 +127,15 @@ def _tile_mode(same_side: bool, ti, tj, nti: int, ntj: int):
 
 @functools.lru_cache(maxsize=64)
 def _device_tiles(mode, device):
-    """Device copies of a standard tile list, made once per shape, so a
-    launch does not copy its list from pageable host memory every time."""
-    ti, tj = upper_triangle_tiles(*mode[1:]) if mode[0] == "upper" \
+    """Device copies of a standard tile list, made once per shape on the
+    current stream: ``((tile_i, tile_j) on the device, their pinned host
+    sources)``.  The copies start from pinned memory with
+    ``non_blocking=True``, so the first launch of a shape drains no stream;
+    the cache keeps the sources alive."""
+    lists = upper_triangle_tiles(*mode[1:]) if mode[0] == "upper" \
         else all_tiles(*mode[1:])
-    return torch.tensor(ti, device=device), torch.tensor(tj, device=device)
+    host = tuple(torch.from_numpy(t.copy()).pin_memory() for t in lists)
+    return tuple(h.to(device, non_blocking=True) for h in host), host
 
 
 def mirror_upper_tiles(s: torch.Tensor, tile: int) -> torch.Tensor:
@@ -299,7 +303,7 @@ def cooccurrence_tiles(
         ti_d = torch.tensor(ti, device=dev)
         tj_d = torch.tensor(tj, device=dev)
     else:
-        ti_d, tj_d = _device_tiles(mode, dev)
+        ti_d, tj_d = _device_tiles(mode, dev)[0]
     # the bf16 kernel also takes its flush segment
     segment = (BF16_SEGMENT_CHUNKS,) if compute_dtype == torch.bfloat16 else ()
     with torch.cuda.device(dev):

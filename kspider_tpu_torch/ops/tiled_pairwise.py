@@ -36,8 +36,21 @@ OpenMP packer) while the calling thread places sides on the devices, looks
 up the side cache, launches and extracts; all device work, and so every
 update of the launch counters in ``ops/cuda_pairwise.py``, is issued from
 the calling thread.
+
+Streams, on a CUDA device (:class:`_Lane`): nothing in the loop drains a
+stream, so ``INFLIGHT`` pairs stay queued on the device while the host
+extracts and writes.  The worker packs into a ring of pinned host buffers
+(:class:`_HostSlots`); the sides, limbs and posting keys cross on a copy
+stream with ``non_blocking=True``, and the compute stream waits on the
+copy's event.  Right after its kernels, each pair's kept entries are
+compacted on the device (:func:`compact_kept`) and its count starts its
+D2H into pinned memory behind one event.  Extract waits on that pair's
+event only, then fetches the first ``count`` entries on a D2H stream that
+waits on the same event, not behind the pairs queued after it.  On the CPU
+the same code runs without pinning or streams.
 """
 
+import functools
 import hashlib
 import threading
 import time
@@ -307,10 +320,11 @@ def _pack_side(off, mem_local, n_blocks: int, block: int,
 
 def _pack_panel_side(
     plan: PanelPlan, panel_id: int, segs_slice: np.ndarray, n_blocks: int,
-    block: int, panel_pad: int,
+    block: int, panel_pad: int, out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Pack one panel pair side straight from the plan's segment CSR into
-    the kernel's layout u8[n_blocks, panel_pad/8, block].
+    the kernel's layout u8[n_blocks, panel_pad/8, block]; into ``out``
+    (zeroed here) when given.
 
     Goes through the native OpenMP packer ``ks_pack_segments``, shared with
     the JAX package, which writes the transposed layout directly; a failure
@@ -318,6 +332,8 @@ def _pack_panel_side(
     ``KSPIDER_NATIVE=force``) and the numpy packer takes over."""
     from kspider_tpu_torch.io import native
 
+    if out is not None:
+        out.fill(0)
     if native.enabled():
         try:
             if not native.available():
@@ -333,14 +349,21 @@ def _pack_panel_side(
                 block,
                 n_blocks,
                 True,
+                out=out,
             )
         except native.NativeRequiredError:
             raise
         except Exception as exc:
             native.report_fallback("pack_segments", exc)
+            if out is not None:
+                out.fill(0)  # the failed call may have set bits
     off, mem = _gather_side(plan, segs_slice)
-    return _pack_side(off, mem - panel_id * plan.panel, n_blocks, block,
+    bits = _pack_side(off, mem - panel_id * plan.panel, n_blocks, block,
                       panel_pad)
+    if out is None:
+        return bits
+    out[...] = bits
+    return out
 
 
 def _postings_keys(
@@ -377,13 +400,18 @@ def _postings_keys(
     return out
 
 
-def _pad_limbs(wl: np.ndarray, n_blocks: int, block: int) -> np.ndarray:
-    """(colors, L) limbs -> i8[n_blocks, L, block], zero-padded colors."""
+def _pad_limbs(wl: np.ndarray, n_blocks: int, block: int,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
+    """(colors, L) limbs -> i8[n_blocks, L, block], zero-padded colors;
+    written into ``out`` when given."""
     n_limbs = wl.shape[1]
-    out = np.zeros((n_blocks * block, n_limbs), dtype=np.int8)
-    out[: len(wl)] = wl
-    out = out.reshape(n_blocks, block, n_limbs)
-    return np.ascontiguousarray(out.transpose(0, 2, 1))
+    padded = np.zeros((n_blocks * block, n_limbs), dtype=np.int8)
+    padded[: len(wl)] = wl
+    padded = padded.reshape(n_blocks, block, n_limbs).transpose(0, 2, 1)
+    if out is None:
+        return np.ascontiguousarray(padded)
+    out[...] = padded
+    return out
 
 
 class _PostingsSide(tuple):
@@ -452,6 +480,206 @@ def _segs_digest(segs: np.ndarray) -> bytes:
     return hashlib.blake2b(
         np.ascontiguousarray(segs).tobytes(), digest_size=16
     ).digest()
+
+
+# ---- host staging, streams and the device compaction ------------------------
+
+#: byte alignment of the arrays handed out by a pinned staging slot
+_ALIGN = 64
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pinned_page(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class _Slot:
+    """The host arrays of one panel pair in flight.
+
+    Pinned: views into pinned pages, handed out in order; a page that
+    overflows is followed by a bigger one, and :meth:`reset` merges them.
+    ``event`` marks the last H2D copy that reads the slot.  Not pinned:
+    fresh numpy arrays."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.pages = []
+        self.used = 0  # bytes handed out from the last page
+        self.total = 0  # bytes handed out since the last reset
+        self.event = None
+
+    def reset(self):
+        """Wait until the copies of the slot's last pair have read it."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        if len(self.pages) > 1:
+            self.pages = [_pinned_page(_pow2(self.total))]
+        self.used = self.total = 0
+
+    def empty(self, shape, dtype) -> np.ndarray:
+        dtype = np.dtype(dtype)
+        if not self.pinned:
+            return np.empty(shape, dtype)
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        padded = _cdiv(max(nbytes, 1), _ALIGN) * _ALIGN
+        if not self.pages or self.used + padded > self.pages[-1].numel():
+            last = self.pages[-1].numel() if self.pages else 0
+            self.pages.append(_pinned_page(_pow2(max(padded, 2 * last,
+                                                     1 << 20))))
+            self.used = 0
+        view = self.pages[-1][self.used:self.used + nbytes].numpy()
+        self.used += padded
+        self.total += padded
+        return view.view(dtype).reshape(shape)
+
+    def put(self, arr: np.ndarray) -> np.ndarray:
+        """``arr`` staged in the slot (itself when not pinned)."""
+        if not self.pinned:
+            return arr
+        out = self.empty(arr.shape, arr.dtype)
+        out[...] = arr
+        return out
+
+
+class _HostSlots:
+    """A ring of ``depth`` staging slots, one per panel pair in flight: the
+    pack worker refills slot ``p % depth`` for pair p only after the H2D
+    copies of pair ``p - depth`` have completed."""
+
+    def __init__(self, depth: int, pinned: bool):
+        self.pinned = pinned
+        self.slots = [_Slot(pinned) for _ in range(depth)]
+
+    def begin(self, p: int) -> _Slot:
+        slot = self.slots[p % len(self.slots)]
+        slot.reset()
+        return slot
+
+
+def compact_kept(total: torch.Tensor, keep: torch.Tensor,
+                 iota: Optional[torch.Tensor] = None):
+    """The kept entries of a tile, compacted on its device with no host
+    sync: ``(flat indices, values, count)``, the first ``count`` entries of
+    each in row-major order (as ``torch.nonzero``), ``count`` a one-element
+    int64 tensor.  A cumsum of the mask ranks the kept entries from 1;
+    multiplied by the mask, it sends every dropped entry to rank 0, the one
+    spare slot at the front of each buffer, so the scatters need no
+    boolean indexing, ``nonzero`` or ``masked_select`` (each of which
+    syncs).  ``iota`` is ``arange(keep.numel())`` on the device, when the
+    caller keeps one."""
+    flat = keep.reshape(-1)
+    size = flat.numel()
+    pos = torch.cumsum(flat, 0)
+    count = pos[-1:].clone()
+    dst = pos.mul_(flat)
+    if iota is None:
+        iota = torch.arange(size, device=total.device)
+    idx = torch.empty(size + 1, dtype=torch.int64, device=total.device)
+    idx.scatter_(0, dst, iota)
+    vals = torch.empty(size + 1, dtype=total.dtype, device=total.device)
+    vals.scatter_(0, dst, total.reshape(-1))
+    return idx[1:], vals[1:], count
+
+
+@functools.lru_cache(maxsize=None)
+def _side_streams(device: torch.device):
+    """The copy (H2D) and D2H streams of a CUDA device, one pair for the
+    process: the caching allocator keeps blocks per stream, so new streams
+    on every call would strand the blocks of the old ones."""
+    return torch.cuda.Stream(device), torch.cuda.Stream(device)
+
+
+class _Lane:
+    """One device's side of the panel loop.
+
+    On a CUDA device: a copy stream for the H2D of the staged host arrays, a
+    D2H stream for the extracts, a pinned ring of per-pair counts and a
+    pinned fetch buffer; the compute stream is the current one.  On the
+    CPU: none of these, and the same calls run in order."""
+
+    def __init__(self, device: torch.device, depth: int, staged_reused: bool):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        # a CPU lane reading from reused (pinned) staging must copy
+        self.clone = staged_reused and not self.cuda
+        self.uploaded = False
+        self.iota = None
+        if self.cuda:
+            self.copy, self.d2h = _side_streams(device)
+            self.counts = torch.empty(depth, dtype=torch.int64, pin_memory=True)
+            self.next_count = 0
+            self.fetched = torch.empty(0, dtype=torch.int64, pin_memory=True)
+
+    def upload(self, host: np.ndarray) -> torch.Tensor:
+        """Start the H2D of a staged host array on the copy stream; the
+        device tensor is readable on the compute stream after
+        :meth:`wait_uploads`."""
+        t = torch.from_numpy(host)
+        if not self.cuda:
+            return t.clone() if self.clone else t.to(self.device)
+        with torch.cuda.stream(self.copy):
+            d = t.to(self.device, non_blocking=True)
+        d.record_stream(torch.cuda.current_stream(self.device))
+        self.uploaded = True
+        return d
+
+    def wait_uploads(self):
+        """Make the compute stream wait for the uploads issued so far;
+        returns their event (None when there were none, or on the CPU)."""
+        if not self.uploaded:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.copy)
+        torch.cuda.current_stream(self.device).wait_event(ev)
+        self.uploaded = False
+        return ev
+
+    def phase_a(self, total: torch.Tensor, keep: torch.Tensor):
+        """Compact the kept entries and start the count's D2H; returns the
+        pair's handle for :meth:`fetch`."""
+        if self.iota is None or self.iota.numel() != keep.numel():
+            self.iota = torch.arange(keep.numel(), device=self.device)
+        idx, vals, count = compact_kept(total, keep, self.iota)
+        if not self.cuda:
+            return idx, vals, count, None
+        k = self.next_count
+        self.next_count = (k + 1) % len(self.counts)
+        host = self.counts[k:k + 1]
+        host.copy_(count, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return idx, vals, host, ev
+
+    def fetch(self, handle):
+        """(flat indices, values) as int64 numpy arrays of one pair's kept
+        entries; waits on that pair's events only."""
+        idx, vals, count, ev = handle
+        if not self.cuda:
+            c = int(count)
+            return idx[:c].numpy().copy(), vals[:c].numpy().copy()
+        ev.synchronize()
+        c = int(count)
+        if c == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        if self.fetched.numel() < 2 * c:
+            self.fetched = torch.empty(_pow2(2 * c), dtype=torch.int64,
+                                       pin_memory=True)
+        out = self.fetched
+        self.d2h.wait_event(ev)
+        with torch.cuda.stream(self.d2h):
+            out[:c].copy_(idx[:c], non_blocking=True)
+            out[c:2 * c].copy_(vals[:c], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.d2h)
+        idx.record_stream(self.d2h)
+        vals.record_stream(self.d2h)
+        done.synchronize()
+        host = out.numpy()
+        return host[:c].copy(), host[c:2 * c].copy()
 
 
 def _chunk_acc(bits_a, bits_b, wl, diag: bool, panel_pad: int):
@@ -525,10 +753,16 @@ def iter_panel_pairs(
     cache = _DeviceSideCache(cache_bytes)
     dp_policy, dp_ratio = bm.device_pack_policy(device_pack)
     xfer = dict(bits_bytes=0, keys_bytes=0, bits_sides=0, keys_sides=0)
+    inflight = max(2, len(devices)) if pair_parallel else INFLIGHT
+    # a slot is packed (p + 1) while pair p dispatches and the window holds
+    # inflight more: two past the window, the worker seldom waits on a copy
+    slots = _HostSlots(inflight + 2,
+                       pinned=any(d.type == "cuda" for d in devices))
+    lanes = {d: _Lane(d, inflight + 2, slots.pinned) for d in devices}
 
-    # ---- worker thread: host packing only --------------------------------
+    # ---- worker thread: host packing only, into the pair's staging slot --
 
-    def _keys_side(panel_id, segs_slice, n_blocks):
+    def _keys_side(slot, panel_id, segs_slice, n_blocks):
         """Posting keys for a side, or None to pack it on the host."""
         if dp_policy == "off":
             return None
@@ -542,39 +776,43 @@ def iter_panel_pairs(
             return None
         enc = bm.encode_keys_best(keys, m)
         if enc is None:
-            payload = keys[:m]
+            payload = slot.put(keys[:m])
         elif enc[0] == "d8":
-            payload = ("d8", enc[1], enc[2][:m], enc[3], m)
+            payload = ("d8", enc[1], slot.put(enc[2][:m]), slot.put(enc[3]), m)
         else:
-            payload = ("d16", enc[1], enc[2][:m], m)
+            payload = ("d16", enc[1], slot.put(enc[2][:m]), m)
         return _PostingsSide((payload, n_blocks))
 
-    def _bits_side(panel_id, segs_slice, n_blocks):
+    def _bits_side(slot, panel_id, segs_slice, n_blocks):
+        out = slot.empty((n_blocks, panel_pad // 8, block), np.uint8)
         return _pack_panel_side(plan, panel_id, segs_slice, n_blocks, block,
-                                panel_pad)
+                                panel_pad, out=out)
 
     def _cached(key, pack):
         return _CachedSide((key, None if cache.contains(key) else pack(), pack))
 
-    def _side(panel_id, segs_slice, n_blocks, cacheable):
+    def _side(slot, panel_id, segs_slice, n_blocks, cacheable):
         if cache.budget <= 0 or not cacheable:
-            keys = _keys_side(panel_id, segs_slice, n_blocks)
+            keys = _keys_side(slot, panel_id, segs_slice, n_blocks)
             return keys if keys is not None else _bits_side(
-                panel_id, segs_slice, n_blocks)
+                slot, panel_id, segs_slice, n_blocks)
         key = ("bits", panel_id, _segs_digest(segs_slice), n_blocks)
-        return _cached(key, lambda: _bits_side(panel_id, segs_slice, n_blocks))
+        return _cached(key, lambda: _bits_side(slot, panel_id, segs_slice,
+                                               n_blocks))
 
-    def _limbs(segs_slice, n_blocks, cacheable):
+    def _limbs(slot, segs_slice, n_blocks, cacheable):
         colors = plan.seg_color[segs_slice]
 
         def pack():
-            return _pad_limbs(plan.w_limbs[colors], n_blocks, block)
+            out = slot.empty((n_blocks, n_limbs, block), np.int8)
+            return _pad_limbs(plan.w_limbs[colors], n_blocks, block, out=out)
 
         if cache.budget <= 0 or not cacheable:
             return pack()
         return _cached(("wl", _segs_digest(colors), n_blocks), pack)
 
     def prepare(p: int):
+        slot = slots.begin(p)
         pk = int(plan.pair_keys[p])
         pi, pj = pk // plan.n_panels, pk % plan.n_panels
         e0, e1 = int(plan.pair_off[p]), int(plan.pair_off[p + 1])
@@ -587,12 +825,12 @@ def iter_panel_pairs(
         for cs in range(0, e1 - e0, sup):
             ce = min(cs + sup, e1 - e0)
             n_blocks = pw._round_up(_cdiv(ce - cs, block), shards)
-            side_a = _side(pi, segs_a[cs:ce], n_blocks, cacheable)
+            side_a = _side(slot, pi, segs_a[cs:ce], n_blocks, cacheable)
             side_b = side_a if pi == pj else _side(
-                pj, segs_b[cs:ce], n_blocks, cacheable)
+                slot, pj, segs_b[cs:ce], n_blocks, cacheable)
             chunks.append((side_a, side_b,
-                           _limbs(segs_a[cs:ce], n_blocks, cacheable)))
-        return pi, pj, chunks
+                           _limbs(slot, segs_a[cs:ce], n_blocks, cacheable)))
+        return pi, pj, chunks, slot
 
     def timed_prepare(p: int):
         t0 = time.perf_counter()
@@ -602,33 +840,28 @@ def iter_panel_pairs(
 
     # ---- dispatch thread: every device operation -------------------------
 
-    def _to_device(side, device):
-        """Place a prepared side (or limbs) on ``device``; counts the
-        sides that cross H2D as posting keys or packed u8 bits (i8 limbs
-        are not counted)."""
+    def _upload(side, lane):
+        """Start the H2D of a prepared side (or limbs) on the lane: a device
+        tensor, or for posting keys ``(payload tensors, n_blocks)`` to be
+        packed by :func:`_bits`; counts the sides that cross as posting
+        keys or packed u8 bits (i8 limbs are not counted)."""
         if isinstance(side, _PostingsSide):
             payload, n_blocks = side
             xfer["keys_sides"] += 1
-            xfer["keys_bytes"] += sum(
-                a.nbytes for a in (payload if isinstance(payload, tuple)
-                                   else (payload,))
-                if isinstance(a, np.ndarray))
-            geometry = (n_blocks, block, panel_pad)
             if isinstance(payload, np.ndarray):
-                return bm.scatter_pack_device(payload, *geometry, device=device)
-            if payload[0] == "d8":
-                _, first, d8, exc, count = payload
-                return bm.scatter_pack_device_delta8(
-                    first, d8, exc, count, *geometry, device=device)
-            _, first, d16, count = payload
-            return bm.scatter_pack_device_delta(
-                first, d16, count, *geometry, device=device)
+                xfer["keys_bytes"] += payload.nbytes
+                return _PostingsSide((lane.upload(payload), n_blocks))
+            xfer["keys_bytes"] += sum(a.nbytes for a in payload
+                                      if isinstance(a, np.ndarray))
+            return _PostingsSide((tuple(
+                lane.upload(a) if isinstance(a, np.ndarray) else a
+                for a in payload), n_blocks))
         if isinstance(side, _CachedSide):
             key, host, pack = side
             arr = cache.lookup(key)
             if arr is None:
                 host = pack() if host is None else host
-                arr = torch.from_numpy(host).to(device)
+                arr = lane.upload(host)
                 cache.put(key, arr, host.nbytes)
                 if key[0] == "bits":
                     xfer["bits_sides"] += 1
@@ -637,17 +870,37 @@ def iter_panel_pairs(
         if side.dtype == np.uint8:
             xfer["bits_sides"] += 1
             xfer["bits_bytes"] += side.nbytes
-        return torch.from_numpy(side).to(device)
+        return lane.upload(side)
 
-    def dispatch(pi: int, pj: int, chunks, device):
-        """Launch every chunk; returns (int64 tile, keep mask) on
-        ``device``."""
+    def _bits(placed):
+        """An uploaded side as bits on the device: posting keys are packed
+        there (on the compute stream, after :meth:`_Lane.wait_uploads`)."""
+        if not isinstance(placed, _PostingsSide):
+            return placed
+        payload, n_blocks = placed
+        geometry = (n_blocks, block, panel_pad)
+        if isinstance(payload, torch.Tensor):
+            return bm.scatter_pack_device(payload, *geometry)
+        if payload[0] == "d8":
+            _, first, d8, exc, count = payload
+            return bm.scatter_pack_device_delta8(first, d8, exc, count,
+                                                 *geometry)
+        _, first, d16, count = payload
+        return bm.scatter_pack_device_delta(first, d16, count, *geometry)
+
+    def dispatch(pi: int, pj: int, chunks, slot, lane):
+        """Launch every chunk, then phase A (:meth:`_Lane.phase_a`);
+        returns the pair's extract handle.  Records on the slot the event
+        of the last H2D copy that reads it."""
         diag = pi == pj
         total = None
         for side_a, side_b, wl in chunks:
-            bits_a = _to_device(side_a, device)
-            bits_b = bits_a if side_b is side_a else _to_device(side_b, device)
-            wl = _to_device(wl, device)
+            placed_a = _upload(side_a, lane)
+            placed_b = placed_a if side_b is side_a else _upload(side_b, lane)
+            wl = _upload(wl, lane)
+            slot.event = lane.wait_uploads() or slot.event
+            bits_a = _bits(placed_a)
+            bits_b = bits_a if placed_b is placed_a else _bits(placed_b)
             if shards > 1:
                 acc = _chunk_acc_sharded(bits_a, bits_b, wl, diag, panel_pad,
                                          devices)
@@ -655,40 +908,38 @@ def iter_panel_pairs(
                 acc = _chunk_acc(bits_a, bits_b, wl, diag, panel_pad)
             if total is None:
                 total = torch.zeros((panel_pad, panel_pad), dtype=torch.int64,
-                                    device=device)
+                                    device=lane.device)
             for l in range(n_limbs):
                 total.add_(acc[l], alpha=128**l)
         keep = total >= floor
         if diag:
             keep = torch.triu(keep, diagonal=1)
-        return total, keep
+        return lane.phase_a(total, keep)
 
-    def extract(pi: int, pj: int, handle):
-        total, keep = handle
-        idx = torch.nonzero(keep.view(-1)).squeeze(1)
-        if idx.numel() == 0:
+    def extract(pi: int, pj: int, lane, handle):
+        idx, vals = lane.fetch(handle)
+        if len(idx) == 0:
             return None
-        vals = total.view(-1)[idx].cpu().numpy()
-        idx = idx.cpu().numpy()
         gi = pi * plan.panel + idx // panel_pad
         gj = pj * plan.panel + idx % panel_pad
         return gi, gj, vals
 
     t_pack = t_dispatch = t_extract = 0.0
-    inflight = max(2, len(devices)) if pair_parallel else INFLIGHT
-    pending = deque()  # (pi, pj, handle), oldest first
+    pending = deque()  # (pi, pj, lane, handle), oldest first
     ex = ThreadPoolExecutor(max_workers=1)
     try:
         fut = ex.submit(timed_prepare, 0) if n_pairs else None
         for p in range(n_pairs):
-            (pi, pj, chunks), dt = fut.result()
+            (pi, pj, chunks, slot), dt = fut.result()
             t_pack += dt
             if p + 1 < n_pairs:
                 fut = ex.submit(timed_prepare, p + 1)
             t0 = time.perf_counter()
-            device = devices[p % len(devices)] if pair_parallel else devices[0]
+            lane = lanes[devices[p % len(devices)] if pair_parallel
+                         else devices[0]]
             with record_function("kspider.dispatch"):
-                pending.append((pi, pj, dispatch(pi, pj, chunks, device)))
+                pending.append((pi, pj, lane,
+                                dispatch(pi, pj, chunks, slot, lane)))
             del chunks
             t_dispatch += time.perf_counter() - t0
             while len(pending) > inflight or (p + 1 == n_pairs and pending):

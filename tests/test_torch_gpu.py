@@ -235,6 +235,64 @@ def test_tiled_stream_on_card_equals_cpu(cuda_device, tmp_path, device_pack):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("device_pack", ["force", "off"])
+def test_tiled_stream_on_card_repeats_as_the_staging_ring_wraps(
+        cuda_device, tmp_path, device_pack):
+    """Panels of 128 give at least 10 pairs, so the pinned staging ring
+    (INFLIGHT + 2 slots) and the count ring wrap; three runs in a row are
+    byte-equal to the CPU engine each time."""
+    rng = np.random.default_rng(43)
+    n = 700
+    o, m, w = random_csr(rng, 3000, n, 12, 40000)
+    index = _Index(o, m, w, n, rng.integers(1, 100000, size=n))
+    plan = ttp.build_panel_plan(o, m, w, n, 128)
+    assert len(plan.pair_keys) >= 10
+    ttp.stream_pairwise_tsv(index, str(tmp_path / "cpu"), device="cpu",
+                            panel=128, block=BLOCK, device_pack=device_pack)
+    with open(str(tmp_path / "cpu") + "_kSpider_pairwise.tsv", "rb") as f:
+        want = f.read()
+    for run in range(3):
+        prefix = str(tmp_path / f"card{run}")
+        ttp.stream_pairwise_tsv(index, prefix, device=cuda_device, panel=128,
+                                block=BLOCK, device_pack=device_pack)
+        with open(prefix + "_kSpider_pairwise.tsv", "rb") as f:
+            assert f.read() == want
+
+
+@pytest.mark.gpu
+def test_tiled_stream_drains_no_stream_in_dispatch_or_extract(
+        cuda_device, tmp_path, monkeypatch):
+    """A ``KSPIDER_PROFILE`` trace of the tiled stream, with the device
+    tile lists made anew: no ``cudaStreamSynchronize`` or
+    ``cudaDeviceSynchronize`` inside any ``kspider.dispatch`` or
+    ``kspider.extract`` range, one of each range per pair, and every H2D
+    copy from pinned memory."""
+    from kspider_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(47)
+    n = 700
+    o, m, w = random_csr(rng, 3000, n, 12, 40000)
+    index = _Index(o, m, w, n, rng.integers(1, 100000, size=n))
+    n_pairs = len(ttp.build_panel_plan(o, m, w, n, 128).pair_keys)
+    cp._device_tiles.cache_clear()
+    monkeypatch.setenv(timing.PROFILE_ENV, str(tmp_path / "prof"))
+    ttp.stream_pairwise_tsv(index, str(tmp_path / "card"), device=cuda_device,
+                            panel=128, block=BLOCK, device_pack="auto")
+    traces = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    waits = timing.host_waits(events, ("kspider.dispatch", "kspider.extract"))
+    for name in waits:
+        assert len(waits[name]) == n_pairs
+        for w in waits[name]:
+            assert w["cudaStreamSynchronize"] == w["cudaDeviceSynchronize"] == 0
+    h2d = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    assert h2d and all("Pinned" in name for name in h2d), set(h2d)
+
+
+@pytest.mark.gpu
 def test_device_pack_on_card_equals_host(cuda_device):
     rng = np.random.default_rng(17)
     n_colors, panel_pad, block = 500, 768, 128
