@@ -59,13 +59,14 @@ Phases, each printed on its own line; any failure exits non-zero:
    step's, every shard and every rank must launch the kernel, and no part
    file may remain.  The per-shard kernel time is ``gram_bench``'s NB 97
    shape, not timed here;
-4k. the profiled dense stage: ``pairwise --device cuda`` again with
-   ``KSPIDER_PROFILE`` set.  Exactly one ``*.pt.trace.json`` must be
-   written and parse, hold one ``gram_int8_wgmma_kernel`` event per launch
-   counted and the dense engine's ``kspider.*`` ranges; the TSV must equal
-   the unprofiled one.  Prints the stage wall beside phase 4's, the
-   trace's bytes and the kernel's device ms in the trace beside the
-   ``torch.profiler`` ms of phase 4's matrix product;
+4k. the profiled dense stage: ``pairwise --device cuda`` again, in a
+   fresh process, with ``KSPIDER_PROFILE`` set.  Exactly one
+   ``*.pt.trace.json`` must be written and parse, hold one
+   ``gram_int8_wgmma_kernel`` event per launch counted and the dense
+   engine's ``kspider.*`` ranges; the TSV must equal the unprofiled one.
+   Prints the stage wall beside phase 4's, the trace's bytes and the
+   kernel's device ms in the trace beside the ``torch.profiler`` ms of
+   phase 4's matrix product;
 5. tiled path at full width: a second index of T families (N = 8 T, above
    the dense engine's 16,384).  ``pairwise`` with no engine flag (the
    automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
@@ -74,7 +75,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    off-diagonal chunks.  The TSV must equal the OpenMP host engine's, both
    cluster outputs must equal scipy's and recover the families, and the
    kernel must have run in both modes.  The engine is then rerun without
-   the TSV under ``torch.profiler`` (``gram_time_by_mode``): kernel ms by
+   the TSV under ``torch.profiler`` in a fresh process
+   (``gram_time_by_mode``): kernel ms by
    mode, the device's busy time and idle share, and the pipeline
    (``pipeline_report``): per pair the host waits
    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
@@ -90,8 +92,11 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 Every path-level kernel time is the device's own, from ``torch.profiler``:
 CUDA events around a launch also bracket the host's launch path whenever
-the device waits for the host.  Phase 3 times each case over many
-back-to-back launches with CUDA events (``gram_bench.measure``).
+the device waits for the host.  Phases 4k, 5's rerun and 5b profile in a
+fresh process each (``run_child``): in this long process a later
+profiler session lost the records of the first part of its run.  Phase 3
+times each case over many back-to-back launches with CUDA events
+(``gram_bench.measure``).
 
 Neither jax nor kspider_tpu may have been imported.  Launch counts are
 reset to 0 right before each path and read right after it.  The line
@@ -143,8 +148,12 @@ FORMS = {
 
 
 def phase(name, ok, detail=""):
-    print(f"[phase] {name}: {'PASS' if ok else 'FAIL'} {detail}".rstrip(), flush=True)
+    line = f"[phase] {name}: {'PASS' if ok else 'FAIL'} {detail}".rstrip()
+    print(line, flush=True)
     if not ok:
+        # also on standard error, whose end is what a caller of the
+        # script may be shown when it fails
+        print(line, file=sys.stderr, flush=True)
         sys.exit(1)
 
 
@@ -384,36 +393,18 @@ def pipeline_report(label, events, require_pinned):
     return report
 
 
-def gram_time_by_mode(cp, ttp, plan, dev, workdir):
-    """One rerun of the tiled pairs, no TSV, under ``torch.profiler``: the
-    Gram kernel's device time by launch mode (kernel events in launch order,
-    by correlation id, beside the mode of each launch) and in total, the
-    device's busy time, the rerun's wall and its :func:`pipeline_report`.
-    The kernel times are the device's own, not CUDA events around a launch,
-    which also bracket the host's launch path whenever the device waits for
-    the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    real = cp.cooccurrence_tiles
-    modes = []
-
-    def recorded(bits_i, bits_j, *args, **kw):
-        modes.append("upper" if bits_j is bits_i else "all")
-        return real(bits_i, bits_j, *args, **kw)
-
-    cp.cooccurrence_tiles = recorded
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
-                pass
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1000.0
-    finally:
-        cp.cooccurrence_tiles = real
+def gram_time_by_mode(prefix, workdir):
+    """One rerun of the tiled pairs of the index at ``prefix``, no TSV,
+    under ``torch.profiler`` in a fresh process (:func:`run_child`): the
+    Gram kernel's device time by launch mode (kernel events in launch
+    order, by correlation id, beside the mode of each launch) and in total,
+    the device's busy time, the rerun's wall and its
+    :func:`pipeline_report`.  The kernel times are the device's own, not
+    CUDA events around a launch, which also bracket the host's launch path
+    whenever the device waits for the host."""
     path = os.path.join(workdir, "engine_rerun.json")
-    prof.export_chrome_trace(path)
+    result = run_child("tiled engine rerun", "rerun", prefix, path, workdir)
+    modes, wall_ms = result["modes"], result["wall_ms"]
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     os.remove(path)
@@ -734,10 +725,107 @@ def device_build_phase(index, names, arrays, host_build_s, dev):
     return dict(stats, n=len(names), host_s=host_build_s, device_s=device_s)
 
 
-def profiled_stage(cli, cp, label, prefix, prof_dir, want_tsv, ranges, modes,
-                   launches):
-    """Phases 4k and 5b: ``pairwise -i prefix --device cuda`` in-process with
-    ``KSPIDER_PROFILE=prof_dir``, the environment restored afterwards.
+#: one profiled run of phases 4k, 5 (the engine rerun) and 5b, in a fresh
+#: process: ``stage`` runs the CLI's ``pairwise -i PREFIX --device cuda``
+#: with ``KSPIDER_PROFILE=OUT``; ``rerun`` runs the tiled engine's panel
+#: pairs of the index at PREFIX, no TSV, under torch.profiler and writes
+#: the Chrome trace to OUT.  The library and the CUDA context are loaded
+#: before the timed run; the profiler starts inside it, as for a user's
+#: profiled run.  The last line is ``RESULT {json}``: the wall,
+#: the launch counts of the fresh process, and for ``rerun`` the mode of
+#: each launch in launch order.
+PROFILE_CHILD = """
+import json, os, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+from kspider_tpu_torch.ops import _build
+from kspider_tpu_torch.ops import cuda_pairwise as cp
+
+mode, prefix, out = sys.argv[1:4]
+# the kernels' library and the CUDA context, outside the timed run, as in
+# the smoke's own process
+_build.library()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+result = {{}}
+if mode == "stage":
+    from kspider_tpu_torch.cli.main import cli
+    from kspider_tpu_torch.utils import timing
+
+    os.environ[timing.PROFILE_ENV] = out
+    t0 = time.perf_counter()
+    cli.main(["pairwise", "-i", prefix, "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    result["wall_s"] = time.perf_counter() - t0
+else:
+    from torch.profiler import ProfilerActivity, profile
+    from kspider_tpu_torch.io import artifacts
+    from kspider_tpu_torch.ops import tiled_pairwise as ttp
+
+    index = artifacts.load_index_artifacts(prefix)
+    plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
+                                index.color_counts, index.num_groups, 4096)
+    real, modes = cp.cooccurrence_tiles, []
+
+    def recorded(bits_i, bits_j, *args, **kw):
+        modes.append("upper" if bits_j is bits_i else "all")
+        return real(bits_i, bits_j, *args, **kw)
+
+    cp.cooccurrence_tiles = recorded
+    dev = torch.device("cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
+            pass
+        torch.cuda.synchronize()
+        result["wall_ms"] = (time.perf_counter() - t0) * 1000.0
+    cp.cooccurrence_tiles = real
+    prof.export_chrome_trace(out)
+    result["modes"] = modes
+assert "jax" not in sys.modules, "the port imported jax"
+result["launches"] = dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)
+result["by_dtype"] = dict(cp.LAUNCHES_BY_DTYPE)
+print("RESULT " + json.dumps(result), flush=True)
+"""
+CHILD_TIMEOUT = 600
+
+
+def run_child(label, mode, prefix, out, workdir):
+    """Runs :data:`PROFILE_CHILD` in a fresh process, prints its output
+    under ``label`` and returns its result; the phase fails unless it
+    exits 0 with a result and launched only the int8 form.  A fresh
+    process because, in this long process, a later ``torch.profiler``
+    session lost the device and runtime records of the first part of its
+    run (PERF.md, section 6), while a process's first sessions did not."""
+    script = os.path.join(workdir, "profile_child.py")
+    with open(script, "w") as f:
+        f.write(PROFILE_CHILD.format(
+            repo=os.path.dirname(os.path.abspath(__file__))))
+    try:
+        proc = subprocess.run([sys.executable, script, mode, prefix, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        phase(f"{label}: child process finished within {CHILD_TIMEOUT} s", False)
+    result = None
+    for line in proc.stdout.decode().splitlines():
+        if line.startswith("RESULT "):
+            result = json.loads(line[len("RESULT "):])
+        else:
+            print(f"  [{label}] {line}", flush=True)
+    os.remove(script)
+    phase(f"{label}: child process exited 0 with a result",
+          proc.returncode == 0 and result is not None, f"rc={proc.returncode}")
+    phase(f"{label}: int8 form only", result["by_dtype"]["bfloat16"] == 0,
+          f"{result['by_dtype']}")
+    return result
+
+
+def profiled_stage(label, prefix, prof_dir, want_tsv, ranges, modes, launches,
+                   workdir):
+    """Phases 4k and 5b: ``pairwise -i prefix --device cuda`` with
+    ``KSPIDER_PROFILE=prof_dir``, in a fresh process (:func:`run_child`).
     Exactly one trace must be written and parse, hold one int8 Gram kernel
     event per counted launch (each of ``modes`` launched) and every one of
     ``ranges``; the TSV must equal ``want_tsv``.  Prints the device's busy
@@ -745,17 +833,9 @@ def profiled_stage(cli, cp, label, prefix, prof_dir, want_tsv, ranges, modes,
     (stage wall s, trace bytes, kernel events, their summed device ms)."""
     from kspider_tpu_torch.utils import timing
 
-    old = os.environ.get(timing.PROFILE_ENV)
-    os.environ[timing.PROFILE_ENV] = prof_dir
-    reset_counts(cp)
-    try:
-        wall = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
-    finally:
-        if old is None:
-            del os.environ[timing.PROFILE_ENV]
-        else:
-            os.environ[timing.PROFILE_ENV] = old
-    counts = launches[label] = read_counts(cp)
+    result = run_child(label, "stage", prefix, prof_dir, workdir)
+    wall = result["wall_s"]
+    counts = launches[label] = result["launches"]
     traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
     phase(f"{label}: one trace written", len(traces) == 1, f"{traces}")
     try:
@@ -1022,10 +1102,10 @@ def main():
 
     # ---- 4k. the profiled dense stage ------------------------------------
     prof_dense = profiled_stage(
-        cli, cp, "profiled_dense", prefix, os.path.join(args.workdir, "prof_dense"),
-        dense_tsv, DENSE_RANGES, ("upper",), launches)
+        "profiled_dense", prefix, os.path.join(args.workdir, "prof_dense"),
+        dense_tsv, DENSE_RANGES, ("upper",), launches, args.workdir)
     print(f"[profiled dense N={n}] KSPIDER_PROFILE stage {prof_dense[0]:.3f} s "
-          f"(unprofiled, phase 4: {pairwise_s:.3f} s); trace {prof_dense[1]} B; "
+          f"in a fresh process (unprofiled, phase 4: {pairwise_s:.3f} s); trace {prof_dense[1]} B; "
           f"{prof_dense[2]} kernel events, {prof_dense[3]:.3f} ms of device time "
           f"(phase 4's product: {fmt_ms(dense_prof_ms)} by torch.profiler)",
           flush=True)
@@ -1094,7 +1174,7 @@ def main():
           launches["from_index"]["upper"] > 0 and launches["from_index"]["all"] > 0)
 
     by_mode, prof_ms, busy_ms, wall_ms, rerun = gram_time_by_mode(
-        cp, ttp, plan, dev, args.workdir)
+        big, args.workdir)
     print(f"[tiled N={n_big}] Gram kernel device time on the tiled pairs: "
           + ", ".join(f"{m} {c} launches {t:.3f} ms" for m, (c, t) in by_mode.items())
           + f"; torch.profiler total {fmt_ms(prof_ms)}", flush=True)
@@ -1108,11 +1188,11 @@ def main():
     unprofiled_tsv = os.path.join(args.workdir, "big_unprofiled.tsv")
     shutil.copy(big + "_kSpider_pairwise.tsv", unprofiled_tsv)
     prof_tiled = profiled_stage(
-        cli, cp, "profiled_tiled", big, os.path.join(args.workdir, "prof_tiled"),
-        unprofiled_tsv, TILED_RANGES, ("upper", "all"), launches)
+        "profiled_tiled", big, os.path.join(args.workdir, "prof_tiled"),
+        unprofiled_tsv, TILED_RANGES, ("upper", "all"), launches, args.workdir)
     os.remove(unprofiled_tsv)
     print(f"[profiled tiled N={n_big}] KSPIDER_PROFILE stage {prof_tiled[0]:.3f} s "
-          f"(unprofiled: {pairwise_s:.3f} s); trace {prof_tiled[1]} B; "
+          f"in a fresh process (unprofiled: {pairwise_s:.3f} s); trace {prof_tiled[1]} B; "
           f"{prof_tiled[2]} kernel events, {prof_tiled[3]:.3f} ms of device time "
           f"(engine rerun: torch.profiler total {fmt_ms(prof_ms)})", flush=True)
 
