@@ -25,7 +25,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    sourmash scaled=1000 sketch sizes) through the port's CLI ``pairwise``
    and ``cluster -c 0.2`` in-process.  The pairwise TSV must equal, byte
    for byte, the TSV of the OpenMP host engine on the same CSR; the
-   clusters must equal scipy's and recover the families;
+   clusters must equal scipy's and recover the families.  The dense
+   engine's chunks by form (posting keys packed on the card, or host
+   bitmasks; ``cuda_pairwise.DENSE_CHUNKS``) and their H2D bytes are
+   printed, and at least one chunk must cross as posting keys (the
+   default policy, auto, as kspider_tpu's);
 4b. tiled path on the same index: ``pairwise --engine tiled --panel 2048
    --device-pack force`` (4 panels, 10 pairs); its TSV must equal the dense
    one and the kernel must have run in both modes (upper tiles for
@@ -39,7 +43,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    thresholded adjacency;
 4e. ``pairwise --engine scatter`` (postings scatter + ``torch._int_mm``),
    ``--engine pallas`` and ``--engine bitmask``: each TSV must equal the
-   dense one, and pallas and bitmask must launch the kernel;
+   dense one, and pallas and bitmask must launch the kernel; pallas must
+   ship posting keys, and bitmask must pack every chunk on the host, as
+   kspider_tpu's bitmask engine does;
 4f. the same collection written as .bin files and indexed by the CLI with
    and without ``--device-build --device cuda``: all five artifacts must
    be byte-equal.  Then the device index build in-process
@@ -55,7 +61,7 @@ Phases, each printed on its own line; any failure exits non-zero:
    split), 4j two coordinated worker processes merging over gloo, each on
    its own card or both on cuda:0: the CLI's color-slice and panel-row runs
    and ``distributed_pairwise_from_hash_sets`` on the hash sets saved to an
-   .npz.  Every TSV must equal the dense one, step outputs the fused
+   .npz (every color-slice rank must ship posting keys).  Every TSV must equal the dense one, step outputs the fused
    step's, every shard and every rank must launch the kernel, and no part
    file may remain.  The per-shard kernel time is ``gram_bench``'s NB 97
    shape, not timed here;
@@ -64,9 +70,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    ``*.pt.trace.json`` must be written and parse, hold one
    ``gram_int8_wgmma_kernel`` event per launch counted and the dense
    engine's ``kspider.*`` ranges; the TSV must equal the unprofiled one.
-   Prints the stage wall beside phase 4's, the trace's bytes and the
-   kernel's device ms in the trace beside the ``torch.profiler`` ms of
-   phase 4's matrix product;
+   The child reports its chunk counters, and its trace is read by
+   ``pipeline_report`` over ``kspider.pack`` and ``kspider.gram``: a
+   ``cudaStreamSynchronize`` or ``cudaDeviceSynchronize`` inside either,
+   or any pageable H2D copy, fails the phase.  Prints the stage wall and
+   the construction beside phase 4's, the H2D bytes and ms, the host ms
+   in each range, the trace's bytes and the kernel's device ms in the
+   trace beside the ``torch.profiler`` ms of phase 4's matrix product;
 5. tiled path at full width: a second index of T families (N = 8 T, above
    the dense engine's 16,384).  ``pairwise`` with no engine flag (the
    automatic switch to the panel-streamed engine), ``cluster -c 0.2`` and
@@ -245,9 +255,16 @@ def compare_mode(label, bits_i, bits_j, wl, ti, tj, reps,
 
 def reset_counts(cp):
     cp.LAUNCHES = 0
-    for counts in (cp.LAUNCHES_BY_MODE, cp.LAUNCHES_BY_DTYPE):
+    cp.DENSE_H2D_BYTES = 0
+    for counts in (cp.LAUNCHES_BY_MODE, cp.LAUNCHES_BY_DTYPE, cp.DENSE_CHUNKS):
         for key in counts:
             counts[key] = 0
+
+
+def read_chunks(cp):
+    """The dense engine's chunks by form and their H2D bytes since the
+    last :func:`reset_counts`."""
+    return dict(cp.DENSE_CHUNKS, h2d_bytes=cp.DENSE_H2D_BYTES)
 
 
 def read_counts(cp):
@@ -355,24 +372,31 @@ def trace_summary(events):
             f"{span([e['ts'] for e in device])} us")
 
 
-def pipeline_report(label, events, require_pinned):
-    """The tiled engine's pipeline in a trace (``timing.pipeline_numbers``):
-    per pair, the host waits inside ``kspider.dispatch`` and
-    ``kspider.extract``, the H2D bytes from pinned and from pageable
-    memory, and the H2D time that overlaps a Gram kernel.  Fails the phase
-    on a ``cudaStreamSynchronize`` or ``cudaDeviceSynchronize`` in either
-    range, and with ``require_pinned`` on any pageable H2D.  Returns the
-    numbers."""
+def pipeline_report(label, events, require_pinned, ranges=TILED_RANGES[:2],
+                    unit="pair"):
+    """An engine's pipeline in a trace (``timing.pipeline_numbers``): per
+    ``unit`` (a tiled panel pair, or a dense chunk), the host waits and
+    the host ms inside each of ``ranges`` (the tiled engine's
+    ``kspider.dispatch`` and ``kspider.extract`` by default), the H2D
+    bytes from pinned and from pageable memory, and the H2D time that
+    overlaps a Gram kernel.  Fails the phase on a ``cudaStreamSynchronize``
+    or ``cudaDeviceSynchronize`` in any of the ranges, and with
+    ``require_pinned`` on any pageable H2D.  Returns the numbers, with the
+    host ms of each range under ``range_ms``."""
     from kspider_tpu_torch.utils import timing
 
-    report = timing.pipeline_numbers(events, FORMS[torch.int8][0],
-                                     TILED_RANGES[:2])
+    report = timing.pipeline_numbers(events, FORMS[torch.int8][0], ranges)
     waits = report["waits"]
+    report["range_ms"] = {name: sum(e["dur"] for e in events
+                                    if e.get("cat") == "user_annotation"
+                                    and e.get("name") == name) / 1000.0
+                          for name in ranges}
     drains = {}
     for name, per in waits.items():
         counts = {call: [w[call] for w in per] for call in timing.HOST_WAITS}
-        print(f"[{label}] {name}: {len(per)} ranges (one per pair); "
-              + ", ".join(f"{call} {sum(c)} (per pair {min(c, default=0)}-"
+        print(f"[{label}] {name}: {len(per)} ranges (one per {unit}), "
+              f"{report['range_ms'][name]:.3f} ms on the host; "
+              + ", ".join(f"{call} {sum(c)} (per {unit} {min(c, default=0)}-"
                           f"{max(c, default=0)})" for call, c in counts.items()),
               flush=True)
         drains.update({f"{name} {call}": sum(counts[call])
@@ -382,9 +406,10 @@ def pipeline_report(label, events, require_pinned):
           f"{report['h2d_ms']:.3f} ms of copies, "
           f"{report['h2d_under_kernels_ms']:.3f} ms of it under a kernel",
           flush=True)
-    phase(f"{label}: no stream or device drain in dispatch or extract",
+    short = " or ".join(name.split(".")[-1] for name in ranges)
+    phase(f"{label}: no stream or device drain in {short}",
           not drains and all(waits.values()), f"{drains}" if drains else
-          f"{len(waits['kspider.dispatch'])} pairs")
+          f"{len(waits[ranges[0]])} {unit}s")
     if require_pinned:
         phase(f"{label}: every H2D copy from pinned memory",
               report["h2d_pinned_bytes"] > 0
@@ -590,6 +615,7 @@ else:
 torch.cuda.synchronize(device)
 assert "jax" not in sys.modules, "the port imported jax"
 print("LAUNCHES " + json.dumps(dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)))
+print("CHUNKS " + json.dumps(dict(cp.DENSE_CHUNKS, h2d_bytes=cp.DENSE_H2D_BYTES)))
 print("WORKER_OK", rank, flush=True)
 """
 MP_TIMEOUT = 300
@@ -645,12 +671,14 @@ def multiprocess_phase(prefix, dense_tsv, names, arrays, workdir, devices,
                     p.kill()
                     p.wait()
         walls[path] = time.perf_counter() - t0
-        ranks = []
+        ranks, rank_chunks = [], []
         for r, (p, out) in enumerate(zip(procs, outs)):
             for line in out.splitlines():
                 print(f"  [{path} rank {r}] {line}", flush=True)
                 if line.startswith("LAUNCHES "):
                     ranks.append(json.loads(line[len("LAUNCHES "):]))
+                if line.startswith("CHUNKS "):
+                    rank_chunks.append(json.loads(line[len("CHUNKS "):]))
                 if r == 0 and line.startswith("merging "):
                     merge_line = line
             phase(f"{path}: worker {r} on {devices[r]} exited 0",
@@ -663,6 +691,11 @@ def multiprocess_phase(prefix, dense_tsv, names, arrays, workdir, devices,
               flush=True)
         phase(f"{path}: every rank launched the kernel",
               len(ranks) == 2 and all(c["total"] > 0 for c in ranks))
+        if mode == "dense":
+            phase(f"{path}: every color slice shipped posting keys",
+                  len(rank_chunks) == 2
+                  and all(c["keys"] > 0 for c in rank_chunks),
+                  f"{rank_chunks}")
         phase(f"{path} TSV == dense TSV",
               filecmp.cmp(tsv, dense_tsv, shallow=False))
         parts = glob.glob(os.path.join(workdir, "*.part"))
@@ -731,11 +764,12 @@ def device_build_phase(index, names, arrays, host_build_s, dev):
 #: pairs of the index at PREFIX, no TSV, under torch.profiler and writes
 #: the Chrome trace to OUT.  The library and the CUDA context are loaded
 #: before the timed run; the profiler starts inside it, as for a user's
-#: profiled run.  The last line is ``RESULT {json}``: the wall,
-#: the launch counts of the fresh process, and for ``rerun`` the mode of
-#: each launch in launch order.
+#: profiled run.  The last line is ``RESULT {json}``: the wall, the launch
+#: counts and the dense engine's chunk counters of the fresh process, for
+#: ``stage`` the CLI's matrix construction seconds, and for ``rerun`` the
+#: mode of each launch in launch order.
 PROFILE_CHILD = """
-import json, os, sys, time
+import contextlib, io, json, os, sys, time
 sys.path.insert(0, {repo!r})
 import torch
 from kspider_tpu_torch.ops import _build
@@ -753,10 +787,17 @@ if mode == "stage":
     from kspider_tpu_torch.utils import timing
 
     os.environ[timing.PROFILE_ENV] = out
+    printed = io.StringIO()
     t0 = time.perf_counter()
-    cli.main(["pairwise", "-i", prefix, "--device", "cuda"], standalone_mode=False)
+    with contextlib.redirect_stdout(printed):
+        cli.main(["pairwise", "-i", prefix, "--device", "cuda"],
+                 standalone_mode=False)
     torch.cuda.synchronize()
     result["wall_s"] = time.perf_counter() - t0
+    sys.stdout.write(printed.getvalue())
+    for line in printed.getvalue().splitlines():
+        if line.startswith("pairwise matrix construction: "):
+            result["construction_s"] = float(line.split()[3])
 else:
     from torch.profiler import ProfilerActivity, profile
     from kspider_tpu_torch.io import artifacts
@@ -786,6 +827,7 @@ else:
 assert "jax" not in sys.modules, "the port imported jax"
 result["launches"] = dict(cp.LAUNCHES_BY_MODE, total=cp.LAUNCHES)
 result["by_dtype"] = dict(cp.LAUNCHES_BY_DTYPE)
+result["chunks"] = dict(cp.DENSE_CHUNKS, h2d_bytes=cp.DENSE_H2D_BYTES)
 print("RESULT " + json.dumps(result), flush=True)
 """
 CHILD_TIMEOUT = 600
@@ -829,8 +871,12 @@ def profiled_stage(label, prefix, prof_dir, want_tsv, ranges, modes, launches,
     Exactly one trace must be written and parse, hold one int8 Gram kernel
     event per counted launch (each of ``modes`` launched) and every one of
     ``ranges``; the TSV must equal ``want_tsv``.  Prints the device's busy
-    time in the trace (kernels, copies, sets) over its window.  Returns
-    (stage wall s, trace bytes, kernel events, their summed device ms)."""
+    time in the trace (kernels, copies, sets) over its window, and reads
+    the trace with :func:`pipeline_report` (the tiled engine's ranges, or
+    the dense engine's ``kspider.pack`` and ``kspider.gram``, where a
+    pageable H2D also fails).  Returns (stage wall s, trace bytes, kernel
+    events, their summed device ms, a dict of the child's chunk counters
+    and construction seconds, the trace's window ms and the report)."""
     from kspider_tpu_torch.utils import timing
 
     result = run_child(label, "stage", prefix, prof_dir, workdir)
@@ -866,9 +912,14 @@ def profiled_stage(label, prefix, prof_dir, want_tsv, ranges, modes, launches,
           f"trace's {window_ms:.3f} ms (idle share "
           f"{1 - busy_ms / window_ms:.4f})", flush=True)
     if ranges == TILED_RANGES:
-        pipeline_report(label, events, False)
+        report = pipeline_report(label, events, False)
+    else:
+        report = pipeline_report(label, events, True, ranges[:2], "chunk")
+    extra = dict(chunks=result["chunks"],
+                 construction_s=result.get("construction_s", 0.0),
+                 window_ms=window_ms, report=report)
     return (wall, os.path.getsize(traces[0]), len(kernels),
-            sum(e["dur"] for e in kernels) / 1000.0)
+            sum(e["dur"] for e in kernels) / 1000.0, extra)
 
 
 def main():
@@ -989,16 +1040,29 @@ def main():
           + ", ".join(f"{k} {v:.3f} s" for k, v in phase3_s.items()), flush=True)
 
     # ---- 4. dense path --------------------------------------------------
-    launches = {}
+    launches, chunks = {}, {}
     reset_counts(cp)
-    pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pairwise_s = run_cli(cli, "pairwise", "-i", prefix, "--device", "cuda")
+    sys.stdout.write(out.getvalue())
+    chunks["dense"] = read_chunks(cp)
+    construction_s = [float(line.split()[3]) for line in out.getvalue().splitlines()
+                      if line.startswith("pairwise matrix construction: ")][-1]
     cluster_s = run_cli(cli, "cluster", "-i", prefix, "-c", str(CUTOFF),
                         "--device", "cuda")
     launches["dense"] = read_counts(cp)
-    print(f"[dense] pairwise stage {pairwise_s:.3f} s, cluster stage "
-          f"{cluster_s:.3f} s, kernel launches {launches['dense']}", flush=True)
+    print(f"[dense] pairwise stage {pairwise_s:.3f} s (matrix construction "
+          f"{construction_s:.3f} s), cluster stage {cluster_s:.3f} s, kernel "
+          f"launches {launches['dense']}", flush=True)
+    print(f"[dense] chunks: {chunks['dense']['keys']} as posting keys packed "
+          f"on the card, {chunks['dense']['host']} as host bitmasks; "
+          f"{chunks['dense']['h2d_bytes']} B of chunk inputs to the card",
+          flush=True)
     phase("kernel launched on the dense path", launches["dense"]["upper"] > 0,
           f"{launches['dense']}")
+    phase("dense path shipped posting keys", chunks["dense"]["keys"] > 0,
+          f"{chunks['dense']}")
 
     # kernel time of the pairwise stage's Gram product, from a profiled rerun
     from torch.profiler import ProfilerActivity, profile
@@ -1070,13 +1134,21 @@ def main():
         counts = read_counts(cp)
         if engine != "scatter":
             launches[f"engine_{engine}"] = counts
+            chunks[f"engine_{engine}"] = read_chunks(cp)
         print(f"[engine {engine} N={n}] pairwise stage {engine_s[engine]:.3f} s, "
-              f"kernel launches {counts}", flush=True)
+              f"kernel launches {counts}"
+              + (f", chunks {chunks[f'engine_{engine}']}" if engine != "scatter"
+                 else ""), flush=True)
         phase(f"--engine {engine} TSV == dense TSV",
               filecmp.cmp(tsv, dense_tsv, shallow=False))
         phase(f"--engine {engine} launches",
               counts["total"] == 0 if engine == "scatter" else counts["upper"] > 0,
               f"{counts}")
+    phase("--engine pallas shipped posting keys",
+          chunks["engine_pallas"]["keys"] > 0, f"{chunks['engine_pallas']}")
+    phase("--engine bitmask packed every chunk on the host",
+          chunks["engine_bitmask"]["keys"] == 0
+          and chunks["engine_bitmask"]["host"] > 0, f"{chunks['engine_bitmask']}")
 
     # ---- 4f. index --device-build through the CLI on .bin files, and in-process
     cli_build = bins_cli_phase(cli, names, arrays, args.workdir)
@@ -1109,6 +1181,19 @@ def main():
           f"{prof_dense[2]} kernel events, {prof_dense[3]:.3f} ms of device time "
           f"(phase 4's product: {fmt_ms(dense_prof_ms)} by torch.profiler)",
           flush=True)
+    extra = prof_dense[4]
+    chunks["profiled_dense"] = extra["chunks"]
+    rep = extra["report"]
+    print(f"[profiled dense N={n}] chunks {extra['chunks']}; H2D "
+          f"{rep['h2d_pinned_bytes']} B from pinned memory, "
+          f"{rep['h2d_pageable_bytes']} B pageable, {rep['h2d_ms']:.3f} ms of "
+          f"copies ({rep['h2d_under_kernels_ms']:.3f} ms under a kernel); host "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in rep["range_ms"].items())
+          + f"; matrix construction {extra['construction_s']:.3f} s, trace "
+          f"window {extra['window_ms']:.3f} ms (phase 4: construction "
+          f"{construction_s:.3f} s)", flush=True)
+    phase("profiled dense shipped posting keys", extra["chunks"]["keys"] > 0,
+          f"{extra['chunks']}")
     shutil.rmtree(args.workdir, ignore_errors=True)
     os.makedirs(args.workdir)
 
@@ -1262,6 +1347,7 @@ def main():
                               sum(c["total"] for c in launches.values()),
                               max_err, int8_rows)
     int8_entry["launches_by_path"] = launches
+    int8_entry["dense_chunks_by_path"] = chunks
     print(json.dumps({"kernels": [
         int8_entry,
         kernel_entry("gram_bf16_tiles", torch.bfloat16, bf16_launches,

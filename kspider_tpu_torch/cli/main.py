@@ -263,7 +263,7 @@ def index(ctx, sketches_dir, sourmash, bins, ksize, output_prefix, device_build,
 @click.option("--engine", "engine", default="auto", show_default=True, type=click.Choice(["auto", "bitmask", "pallas", "scatter", "tiled"]), help="co-occurrence engine: bitmask and pallas both run the dense engine on the one hand-written Gram kernel (on Hopper the XLA-bitmask and Pallas variants are that kernel); scatter = postings scatter + int8 matmul; tiled = panel-streamed, any N; auto = dense, or tiled above 16,384 samples on a device.  With --cpu every engine but tiled is the numpy engine")
 @click.option("--panel", "panel", default=4096, show_default=True, type=int, help="sample-panel width for the tiled engine")
 @click.option("--min-shared", "min_shared", default=1, show_default=True, type=int, help="emit only pairs with at least this many shared k-mers")
-@click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="ship sparse panel sides as posting keys and pack them on the device (tiled engine; default: env KSPIDER_DEVICE_PACK or auto; the dense engine packs on the host)")
+@click.option("--device-pack", "device_pack", default=None, type=click.Choice(["auto", "force", "off"]), help="ship sparse color chunks (dense engine) and panel sides (tiled engine) as posting keys and build the bitmask on the device (default: env KSPIDER_DEVICE_PACK or auto; --engine bitmask packs on the host)")
 @click.option("--coordinator", "coordinator", default=None, type=click.STRING, help="torch.distributed coordinator address (host:port) for multi-process runs; or env KSPIDER_COORDINATOR")
 @click.option("--num-processes", "num_processes", default=None, type=int, help="total coordinated processes; or env KSPIDER_NUM_PROCESSES")
 @click.option("--process-id", "process_id", default=None, type=int, help="this process's id in [0, num-processes); or env KSPIDER_PROCESS_ID")

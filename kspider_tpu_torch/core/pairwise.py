@@ -153,19 +153,22 @@ def write_pairwise_rows_coo(
 
 
 def compute_shared_matrix(
-    index: ColorIndex, *, device, engine: str = "auto"
+    index: ColorIndex, *, device, engine: str = "auto",
+    device_pack: Optional[str] = None,
 ) -> np.ndarray:
     """S[i, j] = number of k-mer hashes shared by groups i and j (int64).
 
     ``device=None`` runs the numpy host reference (the CLI's ``--cpu``)
     whatever the engine, as kspider_tpu does; otherwise ``device`` is one
     device or a device list and ``engine`` picks the dense, sharded or
-    scatter engine (``ops.pairwise.shared_kmer_matrix``)."""
+    scatter engine (``ops.pairwise.shared_kmer_matrix``, which hands
+    ``device_pack`` to the dense engine)."""
     args = (index.color_offsets, index.color_members, index.color_counts,
             index.num_groups)
     if device is None:
         return pairwise_ops.shared_kmer_matrix_numpy(*args)
-    return pairwise_ops.shared_kmer_matrix(*args, device=device, engine=engine)
+    return pairwise_ops.shared_kmer_matrix(*args, device=device, engine=engine,
+                                           device_pack=device_pack)
 
 
 def run_pairwise(
@@ -186,11 +189,11 @@ def run_pairwise(
     the numpy host engine.  ``engine="tiled"``, or ``"auto"`` with a device
     and more than ``AUTO_TILED_THRESHOLD`` samples, takes the panel-streamed
     engine (on the CPU when ``device`` is None) with ``panel``-wide panels
-    and ``device_pack`` (see ``ops.bitmask.device_pack_policy``), and returns
-    None: the pairs then live only in the TSV.  Otherwise ``engine``
-    ("auto", "bitmask", "pallas", "scatter" or "sharded", see
+    and returns None: the pairs then live only in the TSV.  Otherwise
+    ``engine`` ("auto", "bitmask", "pallas", "scatter" or "sharded", see
     :func:`compute_shared_matrix`) computes the dense shared matrix, which
-    is returned.  With ``KSPIDER_PROFILE`` set, the matrix construction
+    is returned.  ``device_pack`` (see ``ops.bitmask.device_pack_policy``)
+    reaches either engine.  With ``KSPIDER_PROFILE`` set, the matrix construction
     (the whole streamed stage on the tiled engine; not the dense engine's
     TSV write) runs under one ``utils.timing.profile_trace``."""
     t0 = time.perf_counter()
@@ -230,7 +233,8 @@ def run_pairwise(
             print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
         return None
     with profile_trace(devices):
-        shared = compute_shared_matrix(index, device=device, engine=engine)
+        shared = compute_shared_matrix(index, device=device, engine=engine,
+                                       device_pack=device_pack)
     if echo_timers:
         print(
             f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"

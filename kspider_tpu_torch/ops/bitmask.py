@@ -5,9 +5,10 @@ Counterpart of ``kspider_tpu/ops/bitmask.py``.  Each color's membership is
 a packed bitmask of ``n_pad/8`` bytes, most significant bit first
 (``np.packbits`` order).
 
-The panel-streamed engine can ship a sparse panel side as sorted posting
-keys (``seg * panel_pad + member``) instead of its packed bitmask, and
-rebuild the bitmask on the device.  The key codecs (raw i32, i16 deltas,
+Both engines can ship sparse colors as sorted posting keys (``seg *
+panel_pad + member``) instead of their packed bitmask, and rebuild the
+bitmask on the device: the dense engine per chunk of colors
+(:func:`build_scatter_keys`), the panel-streamed one per panel side.  The key codecs (raw i32, i16 deltas,
 u8 deltas with an i32 escape channel) are numpy and byte-identical to the
 JAX module's.  The device pack is plain torch: JAX computes it in XLA,
 outside any Pallas kernel.
@@ -46,6 +47,31 @@ def pack_bitmask_blocks(
     return bits.reshape(num_blocks, block, n8)
 
 
+def pack_bitmask_blocks_t(
+    offsets: np.ndarray, members: np.ndarray, n: int, block: int,
+    out: "np.ndarray | None" = None,
+) -> np.ndarray:
+    """CSR colors -> the kernel's transposed layout u8[NB, n_pad/8, block],
+    equal to ``pack_bitmask_blocks(...).transpose(0, 2, 1)`` but written in
+    place, with no transposed copy; into ``out`` (contiguous, zeroed here)
+    when given."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    members = np.asarray(members, dtype=np.int64)
+    num_colors = len(offsets) - 1
+    num_blocks = max(1, _cdiv(num_colors, block))
+    n8 = max(128, _cdiv(n, 128) * 128) // 8
+    if out is None:
+        out = np.zeros((num_blocks, n8, block), dtype=np.uint8)
+    else:
+        out.fill(0)
+    color_idx = np.repeat(np.arange(num_colors, dtype=np.int64),
+                          np.diff(offsets))
+    byte = ((color_idx // block) * n8 + members // 8) * block + color_idx % block
+    np.bitwise_or.at(out.reshape(-1), byte,
+                     np.uint8(0x80) >> (members % 8).astype(np.uint8))
+    return out
+
+
 def unpack_bits_to_int8(bits: torch.Tensor) -> torch.Tensor:
     """u8[..., n8] -> i8[..., n8*8] 0/1 (MSB-first, matching np.packbits)."""
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
@@ -74,7 +100,8 @@ def cooccurrence_bitmask_blocks(
 
 
 def device_pack_policy(policy=None) -> Tuple[str, float]:
-    """(policy, ratio) for shipping panel sides as posting keys.
+    """(policy, ratio) for shipping color chunks or panel sides as posting
+    keys.
 
     ``policy`` is auto, force or off; None reads ``KSPIDER_DEVICE_PACK``
     (default auto).  Under auto, keys ship when their payload is at least
@@ -113,6 +140,45 @@ def key_bucket(m: int) -> int:
     p = 1 << ((m - 1).bit_length() - 1)  # largest power of two < 2m
     step = max(1, p // 4)
     return -(-m // step) * step
+
+
+def prefer_keys(policy: str, ratio: float, postings: int,
+                bitmask_bytes: int) -> bool:
+    """kspider_tpu's choice for a chunk or panel side of ``postings``
+    postings whose packed bitmask takes ``bitmask_bytes``: posting keys
+    under "force"; under "auto" when their bucketed payload (4 bytes a
+    posting) times ``ratio`` is at most the bitmask's bytes; never under
+    "off"."""
+    return policy == "force" or (
+        policy == "auto" and 4 * key_bucket(postings) * ratio <= bitmask_bytes)
+
+
+def build_scatter_keys(
+    offsets: np.ndarray, members: np.ndarray, n_pad: int, n_blocks: int,
+    block: int,
+) -> "np.ndarray | None":
+    """CSR colors -> sorted scatter keys for :func:`scatter_pack_device`.
+
+    Key = color * n_pad + member, padded to ``key_bucket`` with ascending
+    out-of-range bit positions (dropped on the device).  Returns None when
+    the bit space would overflow int32 or members are not strictly
+    ascending within each color (the keys must be sorted and unique): the
+    caller then packs on the host."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    cnt = np.diff(offsets)
+    m = int(cnt.sum())
+    total_bits = n_blocks * block * n_pad
+    bucket = key_bucket(m)
+    if total_bits + bucket >= 2**31:
+        return None
+    cidx = np.repeat(np.arange(len(cnt), dtype=np.int64), cnt)
+    keys = cidx * n_pad + np.asarray(members, dtype=np.int64)
+    if len(keys) > 1 and not (keys[1:] > keys[:-1]).all():
+        return None
+    out = np.empty(bucket, dtype=np.int32)
+    out[:m] = keys
+    out[m:] = total_bits + np.arange(bucket - m, dtype=np.int32)
+    return out
 
 
 def delta_encode_keys(keys: np.ndarray, count: int):

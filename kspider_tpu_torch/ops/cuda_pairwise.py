@@ -21,6 +21,21 @@ Inputs keep the JAX package's transposed layout, colors contiguous:
 ``bits_t u8[NB, n_pad/8, block]`` (MSB-first) and ``wl_t i8[NB, L, block]``.
 The TPU's VMEM budgets (``best_strip``, ``sym_fits``, ``auto_tile``) have
 no counterpart: the engine always computes upper tiles and mirrors them.
+
+The dense engine streams ``CHUNK_BLOCKS``-block chunks of colors, as
+``shared_kmer_matrix_pallas`` does.  Per chunk it ships either sorted
+posting keys, packed into the bitmask on the device
+(``bitmask.scatter_pack_device``), or the bitmask packed on the host,
+by kspider_tpu's rule (``bitmask.device_pack_policy``, ``KSPIDER_DEVICE_PACK``
+and ``KSPIDER_DEVICE_PACK_RATIO``); ``DENSE_CHUNKS`` counts the two forms.
+On a CUDA device every chunk input crosses from pinned memory with
+``non_blocking=True`` on the current stream, so packing chunk k + 1 on the
+host overlaps the kernel on chunk k and no copy drains the stream.  The
+host bitmask is packed straight into a pinned buffer in the transposed
+layout.  Pinned buffers are fresh ones from torch's caching host
+allocator, which records the copy's event on each and reuses its memory
+only after that event has completed; nothing rewrites a buffer in
+flight.  On the CPU the same code runs without pinning.
 """
 
 import functools
@@ -50,6 +65,12 @@ LAUNCHES = 0
 LAUNCHES_BY_MODE = {"upper": 0, "all": 0, "list": 0}
 #: the same launches by compute dtype
 LAUNCHES_BY_DTYPE = {"int8": 0, "bfloat16": 0}
+#: chunks of the dense engine by the form they reach the device in:
+#: "keys" (posting keys packed on the device) or "host" (host bitmask)
+DENSE_CHUNKS = {"keys": 0, "host": 0}
+#: bytes of chunk inputs (keys or bitmask, and weight limbs) the dense
+#: engine handed to its device: an H2D copy's payload on a card
+DENSE_H2D_BYTES = 0
 
 #: per compute dtype: its name in LAUNCHES_BY_DTYPE, the library's launch
 #: entry point and the entry point giving its color chunk
@@ -74,19 +95,43 @@ def pack_inputs(
     w_limbs: np.ndarray,
     n_pad: int,
     block: int,
+    device_pack: bool = False,
+    *,
+    empty=None,
 ):
     """CSR colors -> host arrays ``(bits_t u8[NB, n_pad/8, block],
-    wl_t i8[NB, L, block])``; pad colors carry zero bits and zero weights."""
+    wl_t i8[NB, L, block])``; pad colors carry zero bits and zero weights.
+
+    With ``device_pack``, ``bits_t`` is instead kspider_tpu's marker
+    ``("keys", keys, NB)`` when ``bitmask.build_scatter_keys`` qualifies
+    the chunk: sorted posting keys to pack on the device.
+    ``empty(shape, numpy dtype)`` makes the two arrays (default
+    ``np.empty``); the engine passes pinned torch tensors, which are filled
+    through their numpy views and returned as they are."""
+    empty = empty or np.empty
     nb = max(1, -(-(len(offsets) - 1) // block))
     n_limbs = w_limbs.shape[1]
     wl = np.zeros((nb * block, n_limbs), dtype=np.int8)
     wl[: len(w_limbs)] = w_limbs
-    wl_t = np.ascontiguousarray(
-        wl.reshape(nb, block, n_limbs).transpose(0, 2, 1)
-    )
-    bits = bm.pack_bitmask_blocks(offsets, members, n_pad, block)
-    bits_t = np.ascontiguousarray(bits.transpose(0, 2, 1))
+    wl_t = empty((nb, n_limbs, block), np.int8)
+    _numpy(wl_t)[...] = wl.reshape(nb, block, n_limbs).transpose(0, 2, 1)
+    if device_pack:
+        keys = bm.build_scatter_keys(offsets, members, n_pad, nb, block)
+        if keys is not None:
+            return ("keys", keys, nb), wl_t
+    bits_t = empty((nb, n_pad // 8, block), np.uint8)
+    bm.pack_bitmask_blocks_t(offsets, members, n_pad, block, out=_numpy(bits_t))
     return bits_t, wl_t
+
+
+def _numpy(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else a
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    """A pinned host tensor from torch's caching host allocator."""
+    return torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                       pin_memory=True)
 
 
 def _read_only(*arrays):
@@ -333,6 +378,7 @@ def shared_kmer_matrix_cuda(
     block: int = BLOCK,
     drop_singletons: bool = True,
     compute_dtype=torch.int8,
+    device_pack=None,
 ) -> np.ndarray:
     """Exact shared-k-mer matrix (int64, NxN) through :func:`cooccurrence_tiles`
     in the ``compute_dtype`` form (as ``shared_kmer_matrix_pallas``'s).
@@ -341,10 +387,14 @@ def shared_kmer_matrix_cuda(
     int32-exact super-blocks; each super-block streams ``CHUNK_BLOCKS``-block
     chunks into one device-resident ``int32[L, n_pad, n_pad]`` over the
     upper tiles, which is recombined into int64 on the device, mirrored,
-    cut to ``[:n, :n]`` and given a zero diagonal.  The three steps are
-    the ``kspider.pack`` (host pack and H2D), ``kspider.gram`` (the launch)
-    and ``kspider.recombine`` (limbs, mirror, D2H) ranges of a
-    ``torch.profiler`` trace."""
+    cut to ``[:n, :n]`` and given a zero diagonal.  ``device_pack``
+    (auto/force/off; None reads ``KSPIDER_DEVICE_PACK``) picks each chunk's
+    form by kspider_tpu's rule (``bitmask.prefer_keys``): posting keys,
+    or the host bitmask when the rule says so or the keys do not
+    qualify.  The three steps are the ``kspider.pack`` (host pack, H2D and
+    device pack), ``kspider.gram`` (the launch) and ``kspider.recombine``
+    (limbs, mirror, D2H) ranges of a ``torch.profiler`` trace."""
+    global DENSE_H2D_BYTES
     device = resolve_device(device)
     new_offsets, new_members, new_weights = pw._drop_singletons(
         np.asarray(offsets, dtype=np.int64), np.asarray(members, dtype=np.int32),
@@ -352,6 +402,8 @@ def shared_kmer_matrix_cuda(
     if len(new_weights) == 0 or n == 0:
         return np.zeros((n, n), dtype=np.int64)
 
+    dp_policy, dp_ratio = bm.device_pack_policy(device_pack)
+    empty = _pinned_empty if device.type == "cuda" else None
     w_limbs = pw.weight_limbs(new_weights)
     n_limbs = w_limbs.shape[1]
     num_colors = len(new_weights)
@@ -370,10 +422,24 @@ def shared_kmer_matrix_cuda(
             with record_function("kspider.pack"):
                 sl_off = new_offsets[cs : ce + 1] - new_offsets[cs]
                 sl_mem = new_members[new_offsets[cs] : new_offsets[ce]]
-                bits_t, wl_t = pack_inputs(sl_off, sl_mem, w_limbs[cs:ce],
-                                           n_pad, block)
-                bits = torch.from_numpy(bits_t).to(device)
-                wl = torch.from_numpy(wl_t).to(device)
+                nb_chunk = max(1, -(-(ce - cs) // block))
+                devpack = bm.prefer_keys(dp_policy, dp_ratio, len(sl_mem),
+                                         nb_chunk * block * n_pad // 8)
+                bits_h, wl_h = pack_inputs(sl_off, sl_mem, w_limbs[cs:ce],
+                                           n_pad, block, device_pack=devpack,
+                                           empty=empty)
+                wl = torch.as_tensor(wl_h).to(device, non_blocking=True)
+                if isinstance(bits_h, tuple):
+                    _, keys, nb = bits_h
+                    keys = keys[: len(sl_mem)]  # the pad drops on the device
+                    bits = bm.scatter_pack_device(keys, nb, block, n_pad,
+                                                  device=device)
+                    form, nbytes = "keys", keys.nbytes
+                else:
+                    bits = torch.as_tensor(bits_h).to(device, non_blocking=True)
+                    form, nbytes = "host", bits_h.nbytes
+                DENSE_CHUNKS[form] += 1
+                DENSE_H2D_BYTES += nbytes + wl_h.nbytes
             with record_function("kspider.gram"):
                 cooccurrence_tiles(bits, bits, wl, ti, tj, tile=TILE, out=acc,
                                    compute_dtype=compute_dtype)

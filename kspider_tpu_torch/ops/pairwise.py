@@ -213,6 +213,7 @@ def shared_kmer_matrix(
     block: Optional[int] = None,
     drop_singletons: bool = True,
     engine: str = "auto",
+    device_pack: Optional[str] = None,
 ) -> np.ndarray:
     """Exact shared-k-mer matrix S (int64, NxN, symmetric, zero diagonal).
 
@@ -227,7 +228,12 @@ def shared_kmer_matrix(
     version on the CPU) with ``DENSE_BLOCK``-color blocks; "sharded" splits
     those blocks over the devices; "scatter" runs the scatter engine with
     ``SCATTER_BLOCK``.  ``block`` overrides the engine's default.  The
-    sharded engine always drops singletons, as kspider_tpu's does."""
+    sharded engine always drops singletons, as kspider_tpu's does.
+    ``device_pack`` (auto/force/off; None reads ``KSPIDER_DEVICE_PACK``)
+    reaches the dense engine under "pallas" and "auto", the names that run
+    kspider_tpu's Pallas engine; "bitmask" packs on the host ("off"), as
+    kspider_tpu's bitmask engine does, and the sharded and scatter engines
+    take no policy."""
     devices = make_mesh(device)
     check_engine_devices(engine, len(devices))
     if engine == "sharded" or (engine == "auto" and len(devices) > 1):
@@ -249,6 +255,7 @@ def shared_kmer_matrix(
     return shared_kmer_matrix_cuda(
         offsets, members, weights, n, device=devices[0],
         block=block or DENSE_BLOCK, drop_singletons=drop_singletons,
+        device_pack="off" if engine == "bitmask" else device_pack,
     )
 
 

@@ -314,8 +314,7 @@ def _pack_side(off, mem_local, n_blocks: int, block: int,
     pad_colors = n_blocks * block - n_colors
     if pad_colors:
         off = np.concatenate([off, np.full(pad_colors, off[-1], dtype=np.int64)])
-    bits = bm.pack_bitmask_blocks(off, mem_local, panel_pad, block)
-    return np.ascontiguousarray(bits.transpose(0, 2, 1))
+    return bm.pack_bitmask_blocks_t(off, mem_local, panel_pad, block)
 
 
 def _pack_panel_side(
@@ -764,11 +763,9 @@ def iter_panel_pairs(
 
     def _keys_side(slot, panel_id, segs_slice, n_blocks):
         """Posting keys for a side, or None to pack it on the host."""
-        if dp_policy == "off":
-            return None
         m = int(plan.seg_count[segs_slice].sum())
-        bitmask_bytes = n_blocks * block * panel_pad // 8
-        if dp_policy == "auto" and 4 * bm.key_bucket(m) * dp_ratio > bitmask_bytes:
+        if not bm.prefer_keys(dp_policy, dp_ratio, m,
+                              n_blocks * block * panel_pad // 8):
             return None
         keys = _postings_keys(plan, panel_id, segs_slice, panel_pad,
                               n_blocks, block)

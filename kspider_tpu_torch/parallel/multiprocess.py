@@ -122,7 +122,8 @@ def color_slice(
 
 
 def _local_partial_from_slice(index, lo: int, hi: int, device,
-                              engine: str = "auto"):
+                              engine: str = "auto",
+                              device_pack: Optional[str] = None):
     """Partial shared matrix from a contiguous color-class slice."""
     from kspider_tpu_torch.core.index import ColorIndex
     from kspider_tpu_torch.core.pairwise import compute_shared_matrix
@@ -140,7 +141,8 @@ def _local_partial_from_slice(index, lo: int, hi: int, device,
         slicing_mode=index.slicing_mode,
         params=index.params,
     )
-    return compute_shared_matrix(sub, device=device, engine=engine)
+    return compute_shared_matrix(sub, device=device, engine=engine,
+                                 device_pack=device_pack)
 
 
 def _load_index(prefix: str):
@@ -161,14 +163,17 @@ def run_distributed_pairwise(
     echo_timers: bool = True,
     engine: str = "auto",
     min_shared: int = 1,
+    device_pack: Optional[str] = None,
 ) -> Optional[np.ndarray]:
     """Color-sliced multi-process pairwise over an existing index.
 
     Every process loads the same artifacts, computes the partial matrix of
     its color block on ``device`` (one device, or None for the numpy
     engine), and the partials are summed; process 0 writes the TSVs.
-    Returns the full matrix on every process.  The merge is dense, so the
-    panel-streamed ``tiled`` engine is refused here, as in kspider_tpu."""
+    Returns the full matrix on every process.  ``device_pack`` reaches each
+    process's dense engine (``core.pairwise.compute_shared_matrix``).  The
+    merge is dense, so the panel-streamed ``tiled`` engine is refused here,
+    as in kspider_tpu."""
     from kspider_tpu_torch.core import pairwise as core_pairwise
 
     if engine == "tiled":
@@ -188,7 +193,8 @@ def run_distributed_pairwise(
 
     t0 = time.perf_counter()
     lo, hi = color_slice(index.num_colors, pid, nproc)
-    partial = _local_partial_from_slice(index, lo, hi, device, engine)
+    partial = _local_partial_from_slice(index, lo, hi, device, engine,
+                                        device_pack)
     t_merge = time.perf_counter()
     merged = psum_across_processes(partial)
     t_merge = time.perf_counter() - t_merge
@@ -380,7 +386,7 @@ def run_multiprocess_pairwise(
     run_distributed_pairwise(
         prefix, index=index, device=device, engine=engine,
         coordinator=coordinator, num_processes=num_processes,
-        process_id=process_id, min_shared=min_shared,
+        process_id=process_id, min_shared=min_shared, device_pack=device_pack,
     )
 
 

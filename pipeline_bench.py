@@ -1,8 +1,9 @@
-"""The tiled engine's pipeline on one CUDA card, for comparing two trees.
+"""The pairwise engines' pipelines on one CUDA card, for comparing two trees.
 
     python3 pipeline_bench.py make --families F --data DIR [--seed S]
     python3 pipeline_bench.py run --data DIR [--tree T] [--min-shared M]
                                   [--panel P] [--tsv PATH] [--no-stage]
+    python3 pipeline_bench.py dense --data DIR [--tree T]
 
 ``make`` generates ``chip_smoke.make_hash_sets(F)`` (N = 8 F samples),
 builds its index on the host and saves the color CSR and k-mer counts to
@@ -26,6 +27,15 @@ and measures, at panel P (default 4,096) after one warm-up pass:
 3. unless ``--no-stage``, the stage ``stream_pairwise_tsv`` (``--tsv``
    keeps its TSV): wall and the engine's stage breakdown.
 
+``dense`` measures the dense engine (``shared_kmer_matrix_cuda``, as
+``pairwise`` runs it up to 16,384 samples, with the tree's default device
+pack policy) after one warm-up call: once under ``torch.profiler`` (the
+construction's wall, the trace's window, busy and kernel ms, per chunk the
+host waits and the host ms inside ``kspider.pack`` and ``kspider.gram``
+with their top runtime calls, the H2D bytes from pinned and from pageable
+memory and the H2D ms under a Gram kernel) and once unprofiled (its wall,
+and the chunks by form and their H2D bytes where the tree counts them).
+
 Prints one JSON line, ``{"tree": ..., "device": ..., ...}``.  Exits 1
 without a CUDA card.  Every number is the card's, measured in this run.
 """
@@ -42,6 +52,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RANGES = ("kspider.dispatch", "kspider.extract")
+DENSE_RANGES = ("kspider.pack", "kspider.gram")
 
 
 def _this_timing():
@@ -84,8 +95,8 @@ class _Index:
         self.num_groups = int(data["n"])
 
 
-def _trace_numbers(events, timing):
-    out = timing.pipeline_numbers(events, "gram_int8", RANGES)
+def _trace_numbers(events, timing, ranges=RANGES):
+    out = timing.pipeline_numbers(events, "gram_int8", ranges)
     runtime = [e for e in events if e.get("ph") == "X"
                and e.get("cat") == "cuda_runtime"]
     for name, per in out.pop("waits").items():
@@ -109,8 +120,9 @@ def _trace_numbers(events, timing):
     return out
 
 
-def run(args):
-    timing = _this_timing()
+def _setup(args):
+    """Imports the port from ``--tree`` and loads the CSR: (torch, the
+    card, nvidia-smi's name and power limit, the index)."""
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -119,11 +131,8 @@ def run(args):
         print("no CUDA card: torch.cuda.is_available() is False",
               file=sys.stderr)
         sys.exit(1)
-    from torch.profiler import ProfilerActivity, profile
-
     import kspider_tpu_torch
     from kspider_tpu_torch.ops import _build
-    from kspider_tpu_torch.ops import tiled_pairwise as ttp
 
     if not os.path.abspath(kspider_tpu_torch.__file__).startswith(tree):
         sys.exit(f"kspider_tpu_torch imported from {kspider_tpu_torch.__file__}, "
@@ -131,10 +140,71 @@ def run(args):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
     _build.library()
     with np.load(os.path.join(args.data, "csr.npz")) as data:
         index = _Index({k: data[k] for k in data.files})
+    return torch, torch.device("cuda", 0), smi, index
+
+
+def _profiled(torch, fn, data_dir):
+    """``fn()`` under torch.profiler: (its result, the trace's events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    path = os.path.join(data_dir, f"trace.{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return out, events
+
+
+def dense(args):
+    timing = _this_timing()
+    torch, dev, smi, index = _setup(args)
+    from kspider_tpu_torch.ops import cuda_pairwise as cp
+
+    def construct():
+        t0 = time.perf_counter()
+        cp.shared_kmer_matrix_cuda(index.color_offsets, index.color_members,
+                                   index.color_counts, index.num_groups,
+                                   device=dev)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1000.0
+
+    construct()  # warm-up: tile lists, pinned memory, allocator
+    profiled_ms, events = _profiled(torch, construct, args.data)
+    spans = [e for e in events if e.get("ph") == "X"]
+    numbers = _trace_numbers(events, timing, DENSE_RANGES)
+    numbers.update(
+        wall_ms=profiled_ms,
+        window_ms=(max(e["ts"] + e["dur"] for e in spans)
+                   - min(e["ts"] for e in spans)) / 1000.0)
+    chunks = getattr(cp, "DENSE_CHUNKS", None)
+    if chunks is not None:
+        cp.DENSE_H2D_BYTES = 0
+        for key in chunks:
+            chunks[key] = 0
+    result = {
+        "tree": args.tree, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi, "torch": torch.__version__,
+        "n": index.num_groups, "colors": len(index.color_counts),
+        "chunk_blocks": cp.CHUNK_BLOCKS, "block": cp.BLOCK,
+        "dense_profiled": numbers,
+        "dense_wall_ms": construct(),
+    }
+    if chunks is not None:
+        result["chunks"] = dict(chunks, h2d_bytes=cp.DENSE_H2D_BYTES)
+    print(json.dumps(result), flush=True)
+
+
+def run(args):
+    timing = _this_timing()
+    torch, dev, smi, index = _setup(args)
+    from kspider_tpu_torch.ops import tiled_pairwise as ttp
+
     t0 = time.perf_counter()
     plan = ttp.build_panel_plan(index.color_offsets, index.color_members,
                                 index.color_counts, index.num_groups, args.panel)
@@ -151,14 +221,7 @@ def run(args):
         return rows, (time.perf_counter() - t0) * 1000.0
 
     engine()  # warm-up: tile lists, pinned pages, allocator
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rows, profiled_ms = engine()
-    path = os.path.join(args.data, f"trace.{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path)
+    (rows, profiled_ms), events = _profiled(torch, engine, args.data)
     result = {
         "tree": args.tree, "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "torch": torch.__version__,
@@ -208,8 +271,11 @@ def main():
     rn.add_argument("--min-shared", type=int, default=1)
     rn.add_argument("--tsv")
     rn.add_argument("--no-stage", action="store_true")
+    dn = sub.add_parser("dense")
+    dn.add_argument("--data", required=True)
+    dn.add_argument("--tree", default=HERE)
     args = ap.parse_args()
-    make(args) if args.cmd == "make" else run(args)
+    {"make": make, "run": run, "dense": dense}[args.cmd](args)
 
 
 if __name__ == "__main__":

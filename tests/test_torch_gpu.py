@@ -390,6 +390,78 @@ def test_scatter_engine_on_card(cuda_device, block):
     assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, 700))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_pack", ["force", "auto", "off"])
+def test_dense_chunk_forms_on_card_equal_numpy(cuda_device, monkeypatch,
+                                               device_pack):
+    """One-block chunks, so the dense engine streams many of them and the
+    caching host allocator hands the same pinned memory out again and
+    again: posting keys packed on the card and host bitmasks give the
+    exact matrix, and the chunk counters show the forms."""
+    monkeypatch.setattr(cp, "CHUNK_BLOCKS", 1)
+    monkeypatch.setattr(cp, "DENSE_CHUNKS", {"keys": 0, "host": 0})
+    monkeypatch.setattr(cp, "DENSE_H2D_BYTES", 0)
+    monkeypatch.setenv("KSPIDER_DEVICE_PACK_RATIO", "1")
+    rng = np.random.default_rng(53)
+    n = 700
+    o, m, w = random_csr(rng, 6000, n, 12, 40000)
+    n_chunks = -(-int((np.diff(o) >= 2).sum()) // BLOCK)
+    got = cp.shared_kmer_matrix_cuda(o, m, w, n, device=cuda_device,
+                                     block=BLOCK, device_pack=device_pack)
+    assert np.array_equal(got, tpw.shared_kmer_matrix_numpy(o, m, w, n))
+    forms = cp.DENSE_CHUNKS
+    assert forms["keys"] + forms["host"] == n_chunks > 20
+    # about 900 postings a block against 12,288 bitmask bytes: auto keys all
+    assert forms["host" if device_pack == "off" else "keys"] == n_chunks
+    assert cp.DENSE_H2D_BYTES > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("device_pack", ["force", "off"])
+def test_dense_stream_drains_no_stream_in_pack_or_gram(cuda_device, tmp_path,
+                                                       monkeypatch, device_pack):
+    """A ``KSPIDER_PROFILE`` trace of the dense stage in several chunks, with
+    the device tile lists made anew: no ``cudaStreamSynchronize`` or
+    ``cudaDeviceSynchronize`` inside any ``kspider.pack`` or
+    ``kspider.gram`` range, one of each per chunk, and every H2D copy from
+    pinned memory; the TSV equals an unprofiled CPU run's."""
+    from kspider_tpu_torch.core import pairwise as tcore
+    from kspider_tpu_torch.ops import _build
+    from kspider_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(59)
+    n = 700
+    o, m, w = random_csr(rng, 3000, n, 12, 40000)
+    index = _Index(o, m, w, n, rng.integers(1, 100000, size=n))
+    monkeypatch.setattr(cp, "CHUNK_BLOCKS", 4)
+    monkeypatch.setattr(tpw, "DENSE_BLOCK", BLOCK)
+    n_chunks = -(-int((np.diff(o) >= 2).sum()) // (4 * BLOCK))
+    monkeypatch.delenv(timing.PROFILE_ENV, raising=False)
+    tcore.run_pairwise(str(tmp_path / "cpu"), index, device="cpu",
+                       engine="pallas", echo_timers=False)
+    _build.library()
+    cp._device_tiles.cache_clear()
+    monkeypatch.setenv(timing.PROFILE_ENV, str(tmp_path / "prof"))
+    tcore.run_pairwise(str(tmp_path / "card"), index, device=cuda_device,
+                       engine="pallas", device_pack=device_pack,
+                       echo_timers=False)
+    traces = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    waits = timing.host_waits(events, ("kspider.pack", "kspider.gram"))
+    for name in waits:
+        assert len(waits[name]) == n_chunks > 1
+        for w_ in waits[name]:
+            assert w_["cudaStreamSynchronize"] == w_["cudaDeviceSynchronize"] == 0
+    h2d = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    assert h2d and all("Pinned" in name for name in h2d), set(h2d)
+    with open(str(tmp_path / "cpu") + "_kSpider_pairwise.tsv", "rb") as a, \
+            open(str(tmp_path / "card") + "_kSpider_pairwise.tsv", "rb") as b:
+        assert a.read() == b.read()
+
+
 def two_shards():
     """Two shards on one card, or one on each of the first two cards."""
     if torch.cuda.device_count() >= 2:
