@@ -343,26 +343,30 @@ def pairwise(ctx, index_prefix, ani, user_threads, sourmash_scale, force_cpu, de
 def cluster(ctx, index_prefix, cutoff, distance_type, force_cpu, device_name, from_index, panel, min_shared):
     """Sequence clustering."""
     from kspider_tpu_torch.core import cluster as core_cluster
+    from kspider_tpu_torch.utils.timing import profile_trace, timed
 
     log = ctx.obj
     device = _resolve(log, device_name, force_cpu, many=True)
-    if from_index:
-        from kspider_tpu_torch.io import artifacts, npz_index
+    devices = [] if device is None else device if isinstance(device, list) \
+        else [device]
+    with profile_trace(devices, "cluster"):
+        if from_index:
+            from kspider_tpu_torch.io import artifacts, npz_index
 
-        index = npz_index.load(index_prefix)
-        if index is None:
-            index = artifacts.load_index_artifacts(index_prefix)
-        out = core_cluster.cluster_from_index(
-            index, index_prefix, cutoff, dist_type=distance_type,
-            device=device, panel=panel, min_shared=min_shared, logger=log,
-        )
-        log.SUCCESS(f"Clusters written to {out}")
-        return
-    log.INFO("Building the main graph...")
-    out = core_cluster.cluster_index(
-        index_prefix, cutoff, dist_type=distance_type,
-        device=device[0] if isinstance(device, list) else device, logger=log,
-    )
+            with timed("kspider.load"):
+                index = npz_index.load(index_prefix)
+                if index is None:
+                    index = artifacts.load_index_artifacts(index_prefix)
+            out = core_cluster.cluster_from_index(
+                index, index_prefix, cutoff, dist_type=distance_type,
+                device=device, panel=panel, min_shared=min_shared, logger=log,
+            )
+        else:
+            log.INFO("Building the main graph...")
+            out = core_cluster.cluster_index(
+                index_prefix, cutoff, dist_type=distance_type,
+                device=devices[0] if devices else None, logger=log,
+            )
     log.SUCCESS(f"Clusters written to {out}")
 
 

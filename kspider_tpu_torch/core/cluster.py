@@ -20,6 +20,7 @@ from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
 from kspider_tpu_torch.utils.logger import Logger
 from kspider_tpu_torch.ops import cc as cc_ops
 from kspider_tpu_torch.parallel.mesh import make_mesh
+from kspider_tpu_torch.utils.timing import timed
 
 DISTANCE_TO_COL = {
     "min_cont": 3,
@@ -45,14 +46,20 @@ def iter_pairwise_edge_chunks(
         prefix + "_kSpider_pairwise.ani_col.tsv" if dist_type == "ani" else None
     )
     col = DISTANCE_TO_COL[dist_type]
-    for ids1, ids2, dist in pw_tsv.iter_pairwise_chunks(
-        pairwise_file, col, ani_file, chunk_rows
-    ):
-        keep = dist * 100.0 >= cutoff_percent
-        yield (
-            (ids1[keep] - 1).astype(np.int32),
-            (ids2[keep] - 1).astype(np.int32),
-        )
+    chunks = pw_tsv.iter_pairwise_chunks(pairwise_file, col, ani_file, chunk_rows)
+    while True:
+        # the range covers the parse and the mask, never the yield
+        with timed("kspider.tsv_read"):
+            chunk = next(chunks, None)
+            if chunk is None:
+                return
+            ids1, ids2, dist = chunk
+            keep = dist * 100.0 >= cutoff_percent
+            edges = (
+                (ids1[keep] - 1).astype(np.int32),
+                (ids2[keep] - 1).astype(np.int32),
+            )
+        yield edges
 
 
 def load_pairwise_edges(
@@ -82,11 +89,13 @@ def fold_edges_into_labels(labels, src, dst, n, cc_fn):
     (node -> component representative), so peak memory is O(n + batch)
     however many edges stream through.  Every CC engine returns
     min-node-index representatives, which keeps the star edges a faithful
-    summary across folds."""
-    star = np.nonzero(labels != np.arange(len(labels), dtype=np.int32))[0]
-    src_all = np.concatenate([np.asarray(src, dtype=np.int32), star.astype(np.int32)])
-    dst_all = np.concatenate([np.asarray(dst, dtype=np.int32), labels[star]])
-    return np.asarray(cc_fn(src_all, dst_all, n), dtype=np.int32)
+    summary across folds.  Runs under the ``kspider.cc`` range."""
+    with timed("kspider.cc"):
+        star = np.nonzero(labels != np.arange(len(labels), dtype=np.int32))[0]
+        src_all = np.concatenate([np.asarray(src, dtype=np.int32),
+                                  star.astype(np.int32)])
+        dst_all = np.concatenate([np.asarray(dst, dtype=np.int32), labels[star]])
+        return np.asarray(cc_fn(src_all, dst_all, n), dtype=np.int32)
 
 
 def _cc_fn(device):
@@ -140,10 +149,11 @@ def cluster_from_index(
     n = index.num_groups
     counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
     cc_fn = _cc_fn(None if device is None else devices[0])
-    plan = tp.build_panel_plan(
-        index.color_offsets, index.color_members, index.color_counts,
-        n, panel,
-    )
+    with timed("kspider.plan"):
+        plan = tp.build_panel_plan(
+            index.color_offsets, index.color_members, index.color_counts,
+            n, panel,
+        )
     labels = np.arange(max(n, 1), dtype=np.int32)
     buf_src: List[np.ndarray] = []
     buf_dst: List[np.ndarray] = []
@@ -164,25 +174,28 @@ def cluster_from_index(
     for _, _, gi, gj, vals in tp.iter_panel_pairs(
         plan, device=devices, block=block, min_shared=min_shared,
     ):
-        cmin, cavg, cmax = core_pw.containment_columns(
-            vals, counts[gi], counts[gj]
-        )
-        d = {3: cmin, 4: cavg, 5: cmax}[DISTANCE_TO_COL[dist_type]]
-        keep = d.astype(np.float64) * 100.0 >= cutoff_percent
-        if keep.any():
-            buf_src.append(gi[keep].astype(np.int32))
-            buf_dst.append(gj[keep].astype(np.int32))
-            pending += int(keep.sum())
-            if pending >= edge_batch:
-                fold()
+        # the engine's next pair is produced outside this range
+        with timed("kspider.containment"):
+            cmin, cavg, cmax = core_pw.containment_columns(
+                vals, counts[gi], counts[gj]
+            )
+            d = {3: cmin, 4: cavg, 5: cmax}[DISTANCE_TO_COL[dist_type]]
+            keep = d.astype(np.float64) * 100.0 >= cutoff_percent
+            if keep.any():
+                buf_src.append(gi[keep].astype(np.int32))
+                buf_dst.append(gj[keep].astype(np.int32))
+                pending += int(keep.sum())
+        if pending >= edge_batch:
+            fold()
     fold()
 
-    comps = cc_ops.labels_to_clusters(labels[:n])
-    log.INFO(f"number of clusters: {len(comps)}")
-    out_path = prefix + f"_kSpider_clusters_{cutoff_percent}%.tsv"
-    with open(out_path, "w") as f:
-        for comp in comps:
-            f.write(",".join(index.names[int(node)] for node in comp) + "\n")
+    with timed("kspider.clusters"):
+        comps = cc_ops.labels_to_clusters(labels[:n])
+        log.INFO(f"number of clusters: {len(comps)}")
+        out_path = prefix + f"_kSpider_clusters_{cutoff_percent}%.tsv"
+        with open(out_path, "w") as f:
+            for comp in comps:
+                f.write(",".join(index.names[int(node)] for node in comp) + "\n")
     return out_path
 
 
@@ -206,7 +219,8 @@ def cluster_index(
         raise ValueError("unknown distance")
 
     cutoff_percent = float(cutoff) * 100.0
-    names_map = artifacts_io.read_names_map(prefix + ".namesMap")
+    with timed("kspider.load"):
+        names_map = artifacts_io.read_names_map(prefix + ".namesMap")
     n = max(names_map) if names_map else 0
 
     if dist_type == "ani" and not os.path.exists(
@@ -226,11 +240,11 @@ def cluster_index(
     ):
         if len(src):
             labels = fold_edges_into_labels(labels, src, dst, n, cc_fn)
-    comps = cc_ops.labels_to_clusters(labels[:n])
-    log.INFO(f"number of clusters: {len(comps)}")
-
-    out_path = prefix + f"_kSpider_clusters_{cutoff_percent}%.tsv"
-    with open(out_path, "w") as f:
-        for comp in comps:
-            f.write(",".join(names_map[int(node) + 1] for node in comp) + "\n")
+    with timed("kspider.clusters"):
+        comps = cc_ops.labels_to_clusters(labels[:n])
+        log.INFO(f"number of clusters: {len(comps)}")
+        out_path = prefix + f"_kSpider_clusters_{cutoff_percent}%.tsv"
+        with open(out_path, "w") as f:
+            for comp in comps:
+                f.write(",".join(names_map[int(node) + 1] for node in comp) + "\n")
     return out_path

@@ -19,7 +19,6 @@ panel-streamed engine writes the TSV panel row by panel row.  ``--cpu``
 does.
 """
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -27,7 +26,7 @@ import numpy as np
 from kspider_tpu_torch.core.index import ColorIndex
 from kspider_tpu_torch.ops import pairwise as pairwise_ops
 from kspider_tpu_torch.parallel.mesh import make_mesh
-from kspider_tpu_torch.utils.timing import profile_trace
+from kspider_tpu_torch.utils.timing import profile_trace, timed
 
 # beyond this sample count the JAX package switches to its panel-streamed
 # engine (the int64 NxN host matrix would exceed ~2 GB)
@@ -193,55 +192,50 @@ def run_pairwise(
     ``engine`` ("auto", "bitmask", "pallas", "scatter" or "sharded", see
     :func:`compute_shared_matrix`) computes the dense shared matrix, which
     is returned.  ``device_pack`` (see ``ops.bitmask.device_pack_policy``)
-    reaches either engine.  With ``KSPIDER_PROFILE`` set, the matrix construction
-    (the whole streamed stage on the tiled engine; not the dense engine's
-    TSV write) runs under one ``utils.timing.profile_trace``."""
-    t0 = time.perf_counter()
-    if index is None:
-        from kspider_tpu_torch.io import artifacts, npz_index
-
-        index = npz_index.load(prefix)
-        if index is None:
-            index = artifacts.load_index_artifacts(prefix)
-    if echo_timers:
-        print(f"mapping colors to groups: {time.perf_counter() - t0:.6g} secs")
-
-    t0 = time.perf_counter()
-    write_seq_to_kmers_tsv(prefix, index)
-    if echo_timers:
-        print(f"kmer counting: {time.perf_counter() - t0:.6g} secs")
-
-    t0 = time.perf_counter()
-    tiled = engine == "tiled" or (
-        engine == "auto" and device is not None
-        and index.num_groups > AUTO_TILED_THRESHOLD
-    )
+    reaches either engine.  Each host step runs under a ``kspider.*``
+    range (``utils.timing.timed``): ``load``, ``counts``, ``matrix`` (the
+    engine) and, on the dense engine, ``tsv``; with ``echo_timers`` each
+    prints the reference's timer line.  With ``KSPIDER_PROFILE`` set, the
+    whole stage, index load through the last TSV byte, runs under one
+    ``utils.timing.profile_trace``."""
     devices = [] if device is None else make_mesh(device)
-    if tiled:
-        from kspider_tpu_torch.ops import tiled_pairwise
 
-        with profile_trace(devices):
-            n_rows = tiled_pairwise.stream_pairwise_tsv(
-                index, prefix, device="cpu" if device is None else device,
-                panel=panel, min_shared=min_shared, device_pack=device_pack,
-                echo_progress=echo_timers,
-            )
-        if echo_timers:
-            print(
-                f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"
-            )
-            print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
-        return None
-    with profile_trace(devices):
-        shared = compute_shared_matrix(index, device=device, engine=engine,
-                                       device_pack=device_pack)
-    if echo_timers:
-        print(
-            f"pairwise matrix construction: {time.perf_counter() - t0:.6g} secs"
+    def step(name, label):
+        return timed(name, label if echo_timers else None)
+
+    with profile_trace(devices, "pairwise"):
+        with step("kspider.load", "mapping colors to groups"):
+            if index is None:
+                from kspider_tpu_torch.io import artifacts, npz_index
+
+                index = npz_index.load(prefix)
+                if index is None:
+                    index = artifacts.load_index_artifacts(prefix)
+
+        with step("kspider.counts", "kmer counting"):
+            write_seq_to_kmers_tsv(prefix, index)
+
+        tiled = engine == "tiled" or (
+            engine == "auto" and device is not None
+            and index.num_groups > AUTO_TILED_THRESHOLD
         )
-        print(f"writing pairwise matrix to {prefix}_kSpider_pairwise.tsv")
-    t0 = time.perf_counter()
-    write_pairwise_tsv(prefix, index, shared, min_shared=min_shared)
-    if echo_timers:
-        print(f"pairwise TSV written: {time.perf_counter() - t0:.6g} secs")
-    return shared
+        if tiled:
+            from kspider_tpu_torch.ops import tiled_pairwise
+
+            with step("kspider.matrix", "pairwise matrix construction"):
+                n_rows = tiled_pairwise.stream_pairwise_tsv(
+                    index, prefix, device="cpu" if device is None else device,
+                    panel=panel, min_shared=min_shared, device_pack=device_pack,
+                    echo_progress=echo_timers,
+                )
+            if echo_timers:
+                print(f"streamed {n_rows} pair rows to {prefix}_kSpider_pairwise.tsv")
+            return None
+        with step("kspider.matrix", "pairwise matrix construction"):
+            shared = compute_shared_matrix(index, device=device, engine=engine,
+                                           device_pack=device_pack)
+        if echo_timers:
+            print(f"writing pairwise matrix to {prefix}_kSpider_pairwise.tsv")
+        with step("kspider.tsv", "pairwise TSV written"):
+            write_pairwise_tsv(prefix, index, shared, min_shared=min_shared)
+        return shared

@@ -47,6 +47,7 @@ from torch.profiler import record_function
 from kspider_tpu_torch.device import resolve_device
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import pairwise as pw
+from kspider_tpu_torch.utils.timing import timed
 
 #: output tile edge of the CUDA kernels (``kTile`` in csrc/gram_int8.cu)
 TILE = 128
@@ -391,20 +392,22 @@ def shared_kmer_matrix_cuda(
     (auto/force/off; None reads ``KSPIDER_DEVICE_PACK``) picks each chunk's
     form by kspider_tpu's rule (``bitmask.prefer_keys``): posting keys,
     or the host bitmask when the rule says so or the keys do not
-    qualify.  The three steps are the ``kspider.pack`` (host pack, H2D and
-    device pack), ``kspider.gram`` (the launch) and ``kspider.recombine``
-    (limbs, mirror, D2H) ranges of a ``torch.profiler`` trace."""
+    qualify.  The steps are the ``kspider.prepare`` (singleton drop, weight
+    limbs), ``kspider.pack`` (host pack, H2D and device pack),
+    ``kspider.gram`` (the launch) and ``kspider.recombine`` (limbs, mirror,
+    D2H) ranges of a ``torch.profiler`` trace."""
     global DENSE_H2D_BYTES
     device = resolve_device(device)
-    new_offsets, new_members, new_weights = pw._drop_singletons(
-        np.asarray(offsets, dtype=np.int64), np.asarray(members, dtype=np.int32),
-        np.asarray(weights, dtype=np.int64), drop_singletons)
-    if len(new_weights) == 0 or n == 0:
-        return np.zeros((n, n), dtype=np.int64)
+    with timed("kspider.prepare"):
+        new_offsets, new_members, new_weights = pw._drop_singletons(
+            np.asarray(offsets, dtype=np.int64), np.asarray(members, dtype=np.int32),
+            np.asarray(weights, dtype=np.int64), drop_singletons)
+        if len(new_weights) == 0 or n == 0:
+            return np.zeros((n, n), dtype=np.int64)
+        w_limbs = pw.weight_limbs(new_weights)
 
     dp_policy, dp_ratio = bm.device_pack_policy(device_pack)
     empty = _pinned_empty if device.type == "cuda" else None
-    w_limbs = pw.weight_limbs(new_weights)
     n_limbs = w_limbs.shape[1]
     num_colors = len(new_weights)
     n_pad = max(TILE, pw._round_up(n, TILE))

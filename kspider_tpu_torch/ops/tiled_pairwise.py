@@ -67,7 +67,7 @@ from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
 from kspider_tpu_torch.parallel.mesh import make_mesh
-from kspider_tpu_torch.utils.timing import profile_trace
+from kspider_tpu_torch.utils.timing import profile_trace, timed
 
 #: panel pairs dispatched ahead of the one being extracted, on one device
 #: or with per-pair sharding; pair-parallel runs keep max(2, devices)
@@ -927,7 +927,8 @@ def iter_panel_pairs(
     try:
         fut = ex.submit(timed_prepare, 0) if n_pairs else None
         for p in range(n_pairs):
-            (pi, pj, chunks, slot), dt = fut.result()
+            with timed("kspider.pack_wait"):
+                (pi, pj, chunks, slot), dt = fut.result()
             t_pack += dt
             if p + 1 < n_pairs:
                 fut = ex.submit(timed_prepare, p + 1)
@@ -984,7 +985,8 @@ def stream_pairwise_tsv(
     several devices; pass 0 to force it off, or a byte budget.  Pass a
     dict as ``stats`` (or set ``echo_progress``) for the stage breakdown:
     pack (host, overlapped), dispatch, extract (device wait + D2H), tsv;
-    the same stages are ``kspider.*`` ranges in a ``torch.profiler`` trace.
+    the same stages, with the plan and the waits for the pack thread, are
+    ``kspider.*`` ranges in a ``torch.profiler`` trace.
     With ``KSPIDER_PROFILE`` set, the panel loop and its last flush run
     under ``utils.timing.profile_trace`` (a no-op inside another one, as
     under ``core.pairwise.run_pairwise``)."""
@@ -996,10 +998,11 @@ def stream_pairwise_tsv(
             len(devices) == 1 and devices[0].type == "cuda") else 0
 
     if plan is None:
-        plan = build_panel_plan(
-            index.color_offsets, index.color_members, index.color_counts,
-            index.num_groups, panel,
-        )
+        with timed("kspider.plan"):
+            plan = build_panel_plan(
+                index.color_offsets, index.color_members, index.color_counts,
+                index.num_groups, panel,
+            )
     elif plan.panel != panel:
         raise ValueError(
             f"prebuilt plan has panel={plan.panel}, called with panel={panel}"

@@ -35,7 +35,8 @@ INDEX = ("_groupID_to_kmerCount.bin", "_color_to_sources.bin",
 #: the ranges each engine opens on the thread that runs the stage (the
 #: tiled engine's ``kspider.pack`` is opened on its pack thread)
 DENSE_RANGES = {"kspider.pack", "kspider.gram", "kspider.recombine"}
-TILED_RANGES = {"kspider.dispatch", "kspider.extract", "kspider.tsv"}
+TILED_RANGES = {"kspider.pack_wait", "kspider.dispatch", "kspider.extract",
+                "kspider.tsv"}
 
 
 def copy_index(src_prefix, dst_prefix):
@@ -68,18 +69,25 @@ def refs(sig_collection, tmp_path_factory):
     return out
 
 
+def profiling():
+    """Whether a ``torch.profiler`` session is running in this process
+    (``torch.autograd._profiler_enabled`` reads only the calling thread's
+    state, which an all-threads session leaves unset)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
 def same_bytes(a, b):
     with open(a, "rb") as fa, open(b, "rb") as fb:
         return fa.read() == fb.read()
 
 
-def one_trace(prof_dir):
+def one_trace(prof_dir, stage="pairwise"):
     """The one trace in ``prof_dir``: its path and its event names."""
     traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
     assert len(traces) == 1, traces
     assert os.listdir(prof_dir) == [os.path.basename(traces[0])]
     assert os.path.basename(traces[0]).startswith(
-        f"kspider_pairwise.{socket.gethostname()}.{os.getpid()}.")
+        f"kspider_{stage}.{socket.gethostname()}.{os.getpid()}.")
     with open(traces[0]) as f:
         events = json.load(f)["traceEvents"]
     return traces[0], {e.get("name") for e in events}
@@ -127,10 +135,10 @@ def test_nested_profile_trace_opens_one_profiler(monkeypatch, tmp_path):
         with timing.profile_trace(["cpu"]):
             with record_function("kspider.inner"):
                 torch.ones(4).add_(1)
-        assert torch.autograd._profiler_enabled()
+        assert profiling()
         with record_function("kspider.after_inner"):
             torch.ones(4).add_(1)
-    assert not torch.autograd._profiler_enabled()
+    assert not profiling()
     _, names = one_trace(prof)
     assert {"kspider.inner", "kspider.after_inner"} <= names
 
@@ -142,11 +150,11 @@ def test_stage_that_raises_still_writes_its_trace(monkeypatch, tmp_path):
         with timing.profile_trace(["cpu"]):
             with record_function("kspider.failing"):
                 raise KeyError("stage failed")
-    assert not torch.autograd._profiler_enabled()
+    assert not profiling()
     _, names = one_trace(prof)
     assert "kspider.failing" in names
     with timing.profile_trace(["cpu"]):  # the depth count was restored
-        assert torch.autograd._profiler_enabled()
+        assert profiling()
 
 
 @pytest.mark.parametrize("value", [None, ""])
@@ -158,7 +166,7 @@ def test_unset_or_empty_runs_no_profiler(refs, value, monkeypatch, tmp_path):
         monkeypatch.setenv(timing.PROFILE_ENV, value)
     monkeypatch.chdir(tmp_path)
     with timing.profile_trace(["cpu"]):
-        assert not torch.autograd._profiler_enabled()
+        assert not profiling()
     prefix = str(tmp_path / "run" / "sigs")
     copy_index(refs["index"], prefix)
     tpairwise.run_pairwise(prefix, device="cpu", engine="tiled", panel=PANEL,
@@ -172,7 +180,7 @@ class _FakeProfile:
     """Stands in for ``torch.profiler.profile``; records its activities."""
     made = []
 
-    def __init__(self, activities, on_trace_ready):
+    def __init__(self, activities, on_trace_ready, **settings):
         self.made.append(list(activities))
 
     def start(self):
@@ -227,3 +235,54 @@ def test_jax_profiled_tiled_cli_raises(refs, monkeypatch, tmp_path):
                                        "--panel", str(PANEL)])
     assert isinstance(result.exception, RuntimeError), result.output
     assert "Only one profile may be run at a time" in str(result.exception)
+
+
+def test_pack_thread_ranges_reach_the_trace(refs, monkeypatch, tmp_path):
+    """The tiled engine's ``kspider.pack`` ranges, opened on its pack
+    thread, reach the stage's trace, on another thread than the
+    ``kspider.dispatch`` ranges of the thread that runs the stage."""
+    prof = tmp_path / "prof"
+    monkeypatch.setenv(timing.PROFILE_ENV, str(prof))
+    prefix = str(tmp_path / "run" / "sigs")
+    copy_index(refs["index"], prefix)
+    tpairwise.run_pairwise(prefix, device="cpu", engine="tiled", panel=PANEL,
+                           echo_timers=False)
+    path, _ = one_trace(prof)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    tids = {name: {e["tid"] for e in events if e.get("name") == name
+                   and e.get("cat") == "user_annotation"}
+            for name in ("kspider.pack", "kspider.dispatch", "kspider.load")}
+    assert tids["kspider.pack"] and tids["kspider.dispatch"] == tids["kspider.load"]
+    assert not tids["kspider.pack"] & tids["kspider.dispatch"]
+
+
+@pytest.mark.parametrize("options,ranges", [
+    ([], {"kspider.load", "kspider.tsv_read", "kspider.cc", "kspider.clusters"}),
+    (["--from-index", "--panel", str(PANEL)],
+     {"kspider.load", "kspider.plan", "kspider.pack_wait", "kspider.pack",
+      "kspider.containment", "kspider.cc", "kspider.clusters"}),
+])
+def test_profiled_cluster_writes_one_trace(refs, options, ranges, monkeypatch,
+                                           tmp_path):
+    """``cluster`` and ``cluster --from-index`` under the variable: one
+    ``kspider_cluster`` trace each, holding the stage's ranges, and the
+    clusters of an unprofiled run."""
+    prefix = str(tmp_path / "run" / "sigs")
+    copy_index(refs["index"], prefix)
+    shutil.copy(refs["auto"], prefix + TSV)
+    argv = ["cluster", "-i", prefix, "-c", "0.3", "--device", "cpu"] + options
+    monkeypatch.delenv(timing.PROFILE_ENV, raising=False)
+    CliRunner().invoke(cli, argv, catch_exceptions=False)
+    (plain,) = glob.glob(prefix + "_kSpider_clusters_*")
+    with open(plain, "rb") as f:
+        want = f.read()
+    os.remove(plain)
+    prof = tmp_path / "prof"
+    monkeypatch.setenv(timing.PROFILE_ENV, str(prof))
+    result = CliRunner().invoke(cli, argv, catch_exceptions=False)
+    assert result.exit_code == 0, result.output
+    with open(plain, "rb") as f:
+        assert f.read() == want
+    _, names = one_trace(prof, "cluster")
+    assert ranges <= names, ranges - names
