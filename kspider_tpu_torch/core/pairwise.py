@@ -10,11 +10,14 @@ contract (``kSpider::pairwise``):
   shared count and min/avg/max containment in float32, printed like C++'s
   ``ostream << float`` (6 significant digits).
 
-The TSV is written by the native writers of ``kspider_tpu_torch.io.native``
-(a copy of kspider_tpu's bridge to the same ``native/`` library; pure-Python
-fallbacks below), so both packages emit the same bytes for the same pairs.  Up to ``AUTO_TILED_THRESHOLD`` samples a torch device runs the
-dense engine (one NxN matrix); above it, or with ``engine="tiled"``, the
-panel-streamed engine writes the TSV panel row by panel row.  ``--cpu``
+The dense TSV is written by the port's multi-threaded writer
+(``kspider_tpu_torch.io.tsv_rows``), the panel engine's rows by the native
+COO writer of ``kspider_tpu_torch.io.native`` (a copy of kspider_tpu's
+bridge to the same ``native/`` library); with pure-Python fallbacks below,
+so both packages emit the same bytes for the same pairs.  Up to
+``AUTO_TILED_THRESHOLD`` samples a torch device runs the dense engine (one
+NxN matrix); above it, or with ``engine="tiled"``, the panel-streamed
+engine writes the TSV panel row by panel row.  ``--cpu``
 (``device=None``) runs the numpy dense engine at any size, as kspider_tpu
 does.
 """
@@ -60,25 +63,32 @@ def write_seq_to_kmers_tsv(prefix: str, index: ColorIndex) -> None:
 def write_pairwise_tsv(
     prefix: str, index: ColorIndex, shared: np.ndarray, min_shared: int = 1
 ) -> int:
-    """Emit ``{p}_kSpider_pairwise.tsv``; returns the number of pair rows."""
-    from kspider_tpu_torch.io import native
+    """Emit ``{p}_kSpider_pairwise.tsv``; returns the number of pair rows.
+
+    The port's multi-threaded writer (``io/tsv_rows``) writes it; where that
+    library cannot build or load, ``native.report_fallback`` says so and the
+    one-thread native writer, else the pure-Python one below, writes the
+    same bytes."""
+    from kspider_tpu_torch.io import native, tsv_rows
 
     n = index.num_groups
     min_shared = max(1, int(min_shared))
+    path = prefix + "_kSpider_pairwise.tsv"
     # never-ingested groups count 0 k-mers (containment inf), like phmap's
     # default-inserting operator[]
     counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
     if native.enabled():
         try:
+            return tsv_rows.write_dense(path, shared, counts, min_shared)
+        except Exception as exc:
+            native.report_fallback("tsv_rows.write_dense", exc)
+        try:
             if not native.available():
                 raise RuntimeError(
                     f"native library failed to load: {native.load_error()!r}"
                 )
-            native.write_pairwise_tsv(
-                prefix + "_kSpider_pairwise.tsv", shared, counts,
-                min_shared=min_shared,
-            )
-            return int((shared >= min_shared).sum()) // 2
+            native.write_pairwise_tsv(path, shared, counts, min_shared=min_shared)
+            return int(np.count_nonzero(np.triu(shared >= min_shared, 1)))
         except native.NativeRequiredError:
             raise
         except Exception as exc:
@@ -97,7 +107,7 @@ def write_pairwise_tsv(
         lines.append(
             f"{a}\t{b}\t{sh}\t{format_float_cpp(c1)}\t{format_float_cpp(c2)}\t{format_float_cpp(c3)}"
         )
-    with open(prefix + "_kSpider_pairwise.tsv", "w") as f:
+    with open(path, "w") as f:
         f.write("\n".join(lines))
         f.write("\n")
     return int(nz.sum())
