@@ -4,11 +4,15 @@ Single source of truth for how the cluster and export stages stream the
 pairwise TSV (and the row-aligned ``..ani_col.tsv`` column file) back in:
 both stages in the reference re-parse the file with per-line ``float()``
 (kSpider/pykSpider/kSpider2/ks_clustering.py:63-117,
-kSpider/pykSpider/kSpider2/ks_export.py:44-60); here the parse is
-pandas' C engine with ``float_precision="round_trip"``, which is bit-equal
-to ``float()``/strtod on every value (pandas' default fast parser differs
-by 1 ulp on ~36% of 17-significant-digit reprs — enough to flip a
-threshold comparison sitting on the cutoff).
+kSpider/pykSpider/kSpider2/ks_export.py:44-60); here the parse is the
+port's multi-threaded reader (``io/tsv_rows.read_pairwise``: ``from_chars``
+on every CPU the process may use).  Where its library cannot build or load,
+``native.report_fallback`` says so and pandas' C engine parses on one thread,
+under the ``kspider.tsv_read_pandas`` range, with
+``float_precision="round_trip"``.  Both are bit-equal to ``float()``/strtod
+on every value (pandas' default fast parser differs by 1 ulp on ~36% of
+17-significant-digit reprs — enough to flip a threshold comparison sitting
+on the cutoff).
 
 The pairwise/ani files are required to be row-aligned; a length mismatch
 (stale or truncated ani file) raises instead of silently zip-truncating.
@@ -17,6 +21,8 @@ The pairwise/ani files are required to be row-aligned; a length mismatch
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from kspider_tpu_torch.utils.timing import timed
 
 #: rows parsed per chunk; the reference batches graph edges 10M at a time
 #: (kSpider/pykSpider/kSpider2/ks_clustering.py:26) — we bound the
@@ -41,6 +47,39 @@ def iter_pairwise_chunks(
     distance instead comes from the row-aligned single-column ani file
     and ``dist_col`` is ignored.
     """
+    from kspider_tpu_torch.io import native, tsv_rows
+
+    if native.enabled():
+        try:
+            tsv_rows.library()
+        except RuntimeError as exc:
+            native.report_fallback("tsv_rows.read_pairwise", exc)
+        else:
+            yield from tsv_rows.read_pairwise(pairwise_tsv, dist_col, ani_file,
+                                              chunk_rows)
+            return
+    chunks = _pandas_chunks(pairwise_tsv, dist_col, ani_file, chunk_rows)
+    while True:
+        with timed("kspider.tsv_read_pandas"):
+            chunk = next(chunks, None)
+        if chunk is None:
+            return
+        yield chunk
+
+
+def misaligned_error(pairwise_tsv: str, ani_file: str, rows_pw: int,
+                     rows_ani: int) -> ValueError:
+    """The error for a pairwise TSV and an ani file whose rows disagree."""
+    return ValueError(
+        f"row-aligned files disagree: {pairwise_tsv} has "
+        f">= {rows_pw} rows but {ani_file} has >= {rows_ani} "
+        f"(stale or truncated --estimate-ani output? re-run "
+        f"kspider pairwise --estimate-ani)"
+    )
+
+
+def _pandas_chunks(pairwise_tsv, dist_col, ani_file, chunk_rows):
+    """:func:`iter_pairwise_chunks` parsed by pandas on one thread."""
     import pandas as pd
 
     if ani_file is not None:
@@ -68,12 +107,7 @@ def iter_pairwise_chunks(
                 or ani_chunk is None
                 or len(pw_chunk) != len(ani_chunk)
             ):
-                raise ValueError(
-                    f"row-aligned files disagree: {pairwise_tsv} has "
-                    f">= {rows_pw} rows but {ani_file} has >= {rows_ani} "
-                    f"(stale or truncated --estimate-ani output? re-run "
-                    f"kspider pairwise --estimate-ani)"
-                )
+                raise misaligned_error(pairwise_tsv, ani_file, rows_pw, rows_ani)
             yield (
                 pw_chunk["s1"].to_numpy(),
                 pw_chunk["s2"].to_numpy(),
