@@ -817,7 +817,7 @@ else:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in ttp.iter_panel_pairs(plan, device=dev, cache_bytes=2 << 30):
+        for _ in ttp.iter_panel_pairs(plan, device=dev):
             pass
         torch.cuda.synchronize()
         result["wall_ms"] = (time.perf_counter() - t0) * 1000.0

@@ -133,7 +133,6 @@ def cluster_from_index(
     so a pair sitting exactly on a %g rounding boundary of the TSV may
     classify differently from :func:`cluster_index`.  ``ani`` needs the ani column file and is
     refused."""
-    from kspider_tpu_torch.core import pairwise as core_pw
     from kspider_tpu_torch.ops import tiled_pairwise as tp
 
     log = logger or Logger(quiet=True)
@@ -147,7 +146,7 @@ def cluster_from_index(
     devices = make_mesh("cpu" if device is None else device)
     cutoff_percent = float(cutoff) * 100.0
     n = index.num_groups
-    counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
+    counts = pw_tsv.kmer_counts(index)
     cc_fn = _cc_fn(None if device is None else devices[0])
     with timed("kspider.plan"):
         plan = tp.build_panel_plan(
@@ -176,7 +175,7 @@ def cluster_from_index(
     ):
         # the engine's next pair is produced outside this range
         with timed("kspider.containment"):
-            cmin, cavg, cmax = core_pw.containment_columns(
+            cmin, cavg, cmax = pw_tsv.containment_columns(
                 vals, counts[gi], counts[gj]
             )
             d = {3: cmin, 4: cavg, 5: cmax}[DISTANCE_TO_COL[dist_type]]

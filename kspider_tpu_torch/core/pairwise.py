@@ -5,19 +5,13 @@ contract (``kSpider::pairwise``):
 
 - ``{p}_kSpider_seqToKmersNo.tsv``: header ``ID\\tseq\\tkmers``, then one row
   per ingested group: running 1-based counter, groupID, k-mer count.
-- ``{p}_kSpider_pairwise.tsv``: header, then one row per unordered pair
-  with shared k-mers >= ``min_shared``, sorted by (source_1, source_2):
-  shared count and min/avg/max containment in float32, printed like C++'s
-  ``ostream << float`` (6 significant digits).
+- ``{p}_kSpider_pairwise.tsv``: the format and writers of
+  ``kspider_tpu_torch.io.pairwise_tsv``, which emit kspider_tpu's bytes
+  for the same pairs.
 
-The dense TSV is written by the port's multi-threaded writer
-(``kspider_tpu_torch.io.tsv_rows``), the panel engine's rows by the native
-COO writer of ``kspider_tpu_torch.io.native`` (a copy of kspider_tpu's
-bridge to the same ``native/`` library); with pure-Python fallbacks below,
-so both packages emit the same bytes for the same pairs.  Up to
-``AUTO_TILED_THRESHOLD`` samples a torch device runs the dense engine (one
-NxN matrix); above it, or with ``engine="tiled"``, the panel-streamed
-engine writes the TSV panel row by panel row.  ``--cpu``
+Up to ``AUTO_TILED_THRESHOLD`` samples a torch device runs the dense
+engine (one NxN matrix); above it, or with ``engine="tiled"``, the
+panel-streamed engine writes the TSV panel row by panel row.  ``--cpu``
 (``device=None``) runs the numpy dense engine at any size, as kspider_tpu
 does.
 """
@@ -27,6 +21,7 @@ from typing import Optional
 import numpy as np
 
 from kspider_tpu_torch.core.index import ColorIndex
+from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
 from kspider_tpu_torch.ops import pairwise as pairwise_ops
 from kspider_tpu_torch.parallel.mesh import make_mesh
 from kspider_tpu_torch.utils.timing import profile_trace, timed
@@ -34,22 +29,6 @@ from kspider_tpu_torch.utils.timing import profile_trace, timed
 # beyond this sample count the JAX package switches to its panel-streamed
 # engine (the int64 NxN host matrix would exceed ~2 GB)
 AUTO_TILED_THRESHOLD = 16384
-
-
-def format_float_cpp(x: float) -> str:
-    """Format like C++ ``operator<<(ostream&, float)``: %g, 6 sig digits."""
-    return f"{float(x):.6g}"
-
-
-def containment_columns(shared, k1, k2):
-    """float32 containment columns for pair arrays (reference math)."""
-    with np.errstate(divide="ignore", invalid="ignore"):
-        c12 = np.float32(1.0) * shared.astype(np.float32) / k2.astype(np.float32)
-        c21 = shared.astype(np.float32) / k1.astype(np.float32)
-    cmin = np.minimum(c12, c21)
-    cavg = ((c12 + c21) / np.float32(2.0)).astype(np.float32)
-    cmax = np.maximum(c12, c21)
-    return cmin, cavg, cmax
 
 
 def write_seq_to_kmers_tsv(prefix: str, index: ColorIndex) -> None:
@@ -63,102 +42,10 @@ def write_seq_to_kmers_tsv(prefix: str, index: ColorIndex) -> None:
 def write_pairwise_tsv(
     prefix: str, index: ColorIndex, shared: np.ndarray, min_shared: int = 1
 ) -> int:
-    """Emit ``{p}_kSpider_pairwise.tsv``; returns the number of pair rows.
-
-    The port's multi-threaded writer (``io/tsv_rows``) writes it; where that
-    library cannot build or load, ``native.report_fallback`` says so and the
-    one-thread native writer, else the pure-Python one below, writes the
-    same bytes."""
-    from kspider_tpu_torch.io import native, tsv_rows
-
-    n = index.num_groups
-    min_shared = max(1, int(min_shared))
-    path = prefix + "_kSpider_pairwise.tsv"
-    # never-ingested groups count 0 k-mers (containment inf), like phmap's
-    # default-inserting operator[]
-    counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
-    if native.enabled():
-        try:
-            return tsv_rows.write_dense(path, shared, counts, min_shared)
-        except Exception as exc:
-            native.report_fallback("tsv_rows.write_dense", exc)
-        try:
-            if not native.available():
-                raise RuntimeError(
-                    f"native library failed to load: {native.load_error()!r}"
-                )
-            native.write_pairwise_tsv(path, shared, counts, min_shared=min_shared)
-            return int(np.count_nonzero(np.triu(shared >= min_shared, 1)))
-        except native.NativeRequiredError:
-            raise
-        except Exception as exc:
-            native.report_fallback("write_pairwise_tsv", exc)
-    iu, ju = np.triu_indices(n, k=1)
-    s = shared[iu, ju]
-    nz = s >= min_shared
-    iu, ju, s = iu[nz], ju[nz], s[nz]
-    cmin, cavg, cmax = containment_columns(s, counts[iu], counts[ju])
-
-    lines = ["source_1\tsource_2\tshared_kmers\tmin_containment\tavg_containment\tmax_containment"]
-    for a, b, sh, c1, c2, c3 in zip(
-        (iu + 1).tolist(), (ju + 1).tolist(), s.tolist(),
-        cmin.tolist(), cavg.tolist(), cmax.tolist(),
-    ):
-        lines.append(
-            f"{a}\t{b}\t{sh}\t{format_float_cpp(c1)}\t{format_float_cpp(c2)}\t{format_float_cpp(c3)}"
-        )
-    with open(path, "w") as f:
-        f.write("\n".join(lines))
-        f.write("\n")
-    return int(nz.sum())
-
-
-def write_pairwise_rows_coo(
-    path: str,
-    gi: np.ndarray,
-    gj: np.ndarray,
-    shared: np.ndarray,
-    kmer_counts: np.ndarray,
-    header: bool,
-) -> None:
-    """Append pre-sorted COO pair rows (0-based ids) to the pairwise TSV;
-    ``header=True`` truncates and writes the header line first.  Same row
-    format as :func:`write_pairwise_tsv`."""
-    from kspider_tpu_torch.io import native
-
-    if native.enabled():
-        try:
-            if not native.available():
-                raise RuntimeError(
-                    f"native library failed to load: {native.load_error()!r}"
-                )
-            native.write_pairwise_coo(path, gi, gj, shared, kmer_counts, header)
-            return
-        except native.NativeRequiredError:
-            raise
-        except Exception as exc:
-            native.report_fallback("write_pairwise_coo", exc)
-    counts = np.asarray(kmer_counts, dtype=np.int64)
-    cmin, cavg, cmax = containment_columns(
-        np.asarray(shared, dtype=np.int64), counts[gi], counts[gj]
-    )
-    lines = []
-    if header:
-        lines.append(
-            "source_1\tsource_2\tshared_kmers\tmin_containment\tavg_containment\tmax_containment"
-        )
-    for a, b, sh, c1, c2, c3 in zip(
-        (np.asarray(gi) + 1).tolist(), (np.asarray(gj) + 1).tolist(),
-        np.asarray(shared).tolist(), cmin.tolist(), cavg.tolist(),
-        cmax.tolist(),
-    ):
-        lines.append(
-            f"{a}\t{b}\t{sh}\t{format_float_cpp(c1)}\t{format_float_cpp(c2)}\t{format_float_cpp(c3)}"
-        )
-    with open(path, "w" if header else "a") as f:
-        if lines:
-            f.write("\n".join(lines))
-            f.write("\n")
+    """Emit ``{p}_kSpider_pairwise.tsv`` from the dense shared matrix;
+    returns the number of pair rows (``io/pairwise_tsv.write_dense``)."""
+    return pw_tsv.write_dense(prefix + "_kSpider_pairwise.tsv", shared,
+                              pw_tsv.kmer_counts(index), max(1, int(min_shared)))
 
 
 def compute_shared_matrix(

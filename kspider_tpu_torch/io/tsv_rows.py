@@ -14,13 +14,13 @@ Nothing is compiled at import time.
 
 import ctypes
 import functools
-import hashlib
 import logging
 import os
 import shlex
-import subprocess
 
 import numpy as np
+
+from kspider_tpu_torch.ops import _build
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tsv_rows.cpp")
@@ -36,27 +36,14 @@ def compiler() -> list:
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(" ".join(compiler() + list(CXX_FLAGS)).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libkspider_tsv_{digest.hexdigest()[:16]}.so")
+    return _build.hashed_path(BUILD_DIR, "libkspider_tsv",
+                              compiler() + list(CXX_FLAGS), [SOURCE])
 
 
 def build() -> str:
     """Compile the source unless the hashed library exists; returns its path."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [*compiler(), *CXX_FLAGS, SOURCE, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"host compiler failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return path
+    return _build.build_library(library_path(), lambda tmp: [
+        [[*compiler(), *CXX_FLAGS, SOURCE, "-o", f"{tmp}.tmp"]]])
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,11 +6,14 @@ with a plain C interface, loaded with ``ctypes``.  The library lands in
 ``kspider_tpu_torch/build/`` under a name that carries a hash of the sources,
 the headers they include and the flags, so an edited source or header is
 rebuilt and a stale build is never loaded.  Nothing is compiled at import
-time.
+time.  :func:`hashed_path` and :func:`build_library` build every shared
+library of the port, the host compiler's TSV library of ``io/tsv_rows``
+too.
 """
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -44,40 +47,68 @@ def find_nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
+def hashed_path(build_dir: str, stem: str, words, inputs) -> str:
+    """``<build_dir>/<stem>_<hash>.so``, the hash over ``words`` (the
+    compiler and its flags) and the bytes of the files ``inputs``: an
+    edited input gets a new name, so a stale build is never loaded."""
+    digest = hashlib.sha256(" ".join(words).encode())
+    for name in inputs:
+        with open(name, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libkspider_torch_{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build_library(path: str, stages) -> str:
+    """Build the host library ``path`` (a :func:`hashed_path`) unless it
+    exists; returns ``path``.
+
+    ``stages(tmp)`` gives the commands that build it into ``tmp + ".tmp"``:
+    a list of stages, each a list of commands started all at once, a stage
+    after the one before.  Object files they leave as ``tmp + ".*.o"`` are
+    removed, and the library takes its name in one ``os.replace``, so a
+    reader never loads a half-written file.  A failed command raises
+    ``RuntimeError`` with the command and its stderr."""
+    if os.path.exists(path):
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}"
+    for cmds in stages(tmp):
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            list(pool.map(_run, cmds))
+    for obj in glob.glob(glob.escape(tmp) + ".*.o"):
+        os.remove(obj)
+    os.replace(f"{tmp}.tmp", path)
+    return path
 
 
 def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            f"{os.path.basename(cmd[0])} failed ({proc.returncode}): "
+            f"{' '.join(cmd)}\n{proc.stderr}"
         )
 
 
+def library_path() -> str:
+    return hashed_path(BUILD_DIR, "libkspider_torch", NVCC_FLAGS,
+                       [os.path.join(_CSRC_DIR, n) for n in SOURCES + HEADERS])
+
+
 def build() -> str:
-    """Compile the sources unless the hashed library exists; returns its path."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}"
-    nvcc = find_nvcc()
-    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC_DIR, s), "-o", o]
-            for s, o in zip(SOURCES, objs)]
-    with ThreadPoolExecutor(len(cmds)) as pool:
-        list(pool.map(_run, cmds))
-    _run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs])
-    for o in objs:
-        os.remove(o)
-    os.replace(f"{tmp}.tmp", path)
-    return path
+    """Compile the sources unless the hashed library exists; returns its path:
+    each source by its own ``nvcc``, all at once, then one link."""
+
+    def stages(tmp):
+        nvcc = find_nvcc()
+        objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+        return [
+            [[nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC_DIR, s), "-o", o]
+             for s, o in zip(SOURCES, objs)],
+            [[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs]],
+        ]
+
+    return build_library(library_path(), stages)
 
 
 @functools.lru_cache(maxsize=None)

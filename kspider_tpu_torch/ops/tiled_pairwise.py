@@ -23,19 +23,18 @@ each limb's int32 sum exact, and chunks add up in int64, so one extract
 serves every weight range.
 
 Several devices (a device list, ``parallel/mesh.make_mesh``), by JAX's
-rule: with at least two pairs per device and the side cache off, whole
-pairs go round-robin to the devices (pair-parallel, no reduction);
-otherwise each pair's color blocks are split over the devices and the
-partial tiles summed on the first (per-pair sharding).  Extraction stays in
-plan order either way, so the TSV bytes do not change.  Panel rows
-partition the stream (:func:`filter_plan_rows`), which is how the
-multi-process runs of ``parallel/multiprocess.py`` split it.
+rule: with at least two pairs per device, whole pairs go round-robin to
+the devices (pair-parallel, no reduction); otherwise each pair's color
+blocks are split over the devices and the partial tiles summed on the
+first (per-pair sharding).  Extraction stays in plan order either way, so
+the TSV bytes do not change.  Panel rows partition the stream
+(:func:`filter_plan_rows`), which is how the multi-process runs of
+``parallel/multiprocess.py`` split it.
 
 Threads: one worker packs pair p + 1 on the host (numpy and the native
-OpenMP packer) while the calling thread places sides on the devices, looks
-up the side cache, launches and extracts; all device work, and so every
-update of the launch counters in ``ops/cuda_pairwise.py``, is issued from
-the calling thread.
+OpenMP packer) while the calling thread places sides on the devices,
+launches and extracts; all device work, and so every update of the launch
+counters in ``ops/cuda_pairwise.py``, is issued from the calling thread.
 
 Streams, on a CUDA device (:class:`_Lane`): nothing in the loop drains a
 stream, so ``INFLIGHT`` pairs stay queued on the device while the host
@@ -51,10 +50,8 @@ the same code runs without pinning or streams.
 """
 
 import functools
-import hashlib
-import threading
 import time
-from collections import OrderedDict, deque
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterator, Optional, Tuple
@@ -63,6 +60,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
@@ -422,65 +420,6 @@ class _PostingsSide(tuple):
     __slots__ = ()
 
 
-class _CachedSide(tuple):
-    """A cacheable side: ``(key, host array or None, pack)``.  The worker
-    leaves the host array None when the cache already held the key; the
-    dispatch thread calls ``pack()`` itself if the entry was evicted in
-    between."""
-
-    __slots__ = ()
-
-
-class _DeviceSideCache:
-    """Device-resident LRU of packed panel sides, bounded in bytes.
-
-    A side depends only on (panel, selected segments, block count), and
-    colors that span many panels make off-diagonal pairs re-select the same
-    sides; a hit skips both the pack and the H2D copy.  Entries are the
-    device tensors themselves, so an evicted entry frees its memory once
-    the last pending launch that reads it has run.  A budget of 0 disables
-    it.  ``contains`` may be called from the packing worker; every other
-    method runs on the dispatch thread."""
-
-    def __init__(self, budget_bytes: int):
-        self.budget = budget_bytes
-        self.entries = OrderedDict()
-        self.nbytes = 0
-        self.hits = 0
-        self.misses = 0
-        self._lock = threading.Lock()
-
-    def contains(self, key) -> bool:
-        with self._lock:
-            return key in self.entries
-
-    def lookup(self, key):
-        with self._lock:
-            ent = self.entries.get(key)
-            if ent is None:
-                self.misses += 1
-                return None
-            self.entries.move_to_end(key)
-            self.hits += 1
-            return ent[0]
-
-    def put(self, key, arr, nbytes: int):
-        if self.budget <= 0 or nbytes > self.budget:
-            return
-        with self._lock:
-            while self.nbytes + nbytes > self.budget and self.entries:
-                _, (_, old_bytes) = self.entries.popitem(last=False)
-                self.nbytes -= old_bytes
-            self.entries[key] = (arr, nbytes)
-            self.nbytes += nbytes
-
-
-def _segs_digest(segs: np.ndarray) -> bytes:
-    return hashlib.blake2b(
-        np.ascontiguousarray(segs).tobytes(), digest_size=16
-    ).digest()
-
-
 # ---- host staging, streams and the device compaction ------------------------
 
 #: byte alignment of the arrays handed out by a pinned staging slot
@@ -721,7 +660,6 @@ def iter_panel_pairs(
     device,
     block: int = 1024,
     min_shared: int = 1,
-    cache_bytes: int = 0,
     stats: Optional[dict] = None,
     device_pack: Optional[str] = None,
 ) -> Iterator[Tuple[int, int, np.ndarray, np.ndarray, np.ndarray]]:
@@ -731,25 +669,22 @@ def iter_panel_pairs(
     ``gi``/``gj`` are global 0-based int64 sample ids with gi < gj, in
     row-major order within the pair; ``shared`` the exact int64 counts
     >= max(1, min_shared).  The Gram product runs on ``device``, one
-    device or a device list: with at least two pairs per device and the
-    side cache off, pair p runs on ``devices[p % len(devices)]``; otherwise
-    each pair's color blocks are split over the devices and the partial
-    tiles summed on ``devices[0]``.  ``cache_bytes`` bounds the device side
-    cache (0: off; its entries live on ``devices[0]``).
-    ``device_pack`` (auto/force/off; None reads ``KSPIDER_DEVICE_PACK``)
-    ships sparse single-use sides as posting keys packed on the device.
-    Pass a dict as ``stats`` for per-stage times, payload and cache
+    device or a device list: with at least two pairs per device, pair p
+    runs on ``devices[p % len(devices)]``; otherwise each pair's color
+    blocks are split over the devices and the partial tiles summed on
+    ``devices[0]``.  ``device_pack`` (auto/force/off; None reads
+    ``KSPIDER_DEVICE_PACK``) ships sparse sides as posting keys packed on
+    the device, by ``ops/bitmask.prefer_keys``; the others are packed on
+    the host.  Pass a dict as ``stats`` for per-stage times, payload
     counters and the device layout (``devices``, ``pair_parallel``)."""
     devices = make_mesh(device)
     n_pairs = len(plan.pair_keys)
-    pair_parallel = (len(devices) > 1 and n_pairs >= 2 * len(devices)
-                     and cache_bytes <= 0)
+    pair_parallel = len(devices) > 1 and n_pairs >= 2 * len(devices)
     shards = 1 if pair_parallel else len(devices)
     n_limbs = plan.n_limbs
     panel_pad = max(cp.TILE, _cdiv(plan.panel, cp.TILE) * cp.TILE)
     sup = pw._MAX_COLORS_PER_CALL - (pw._MAX_COLORS_PER_CALL % block)
     floor = max(1, int(min_shared))
-    cache = _DeviceSideCache(cache_bytes)
     dp_policy, dp_ratio = bm.device_pack_policy(device_pack)
     xfer = dict(bits_bytes=0, keys_bytes=0, bits_sides=0, keys_sides=0)
     inflight = max(2, len(devices)) if pair_parallel else INFLIGHT
@@ -785,28 +720,15 @@ def iter_panel_pairs(
         return _pack_panel_side(plan, panel_id, segs_slice, n_blocks, block,
                                 panel_pad, out=out)
 
-    def _cached(key, pack):
-        return _CachedSide((key, None if cache.contains(key) else pack(), pack))
+    def _side(slot, panel_id, segs_slice, n_blocks):
+        keys = _keys_side(slot, panel_id, segs_slice, n_blocks)
+        return keys if keys is not None else _bits_side(
+            slot, panel_id, segs_slice, n_blocks)
 
-    def _side(slot, panel_id, segs_slice, n_blocks, cacheable):
-        if cache.budget <= 0 or not cacheable:
-            keys = _keys_side(slot, panel_id, segs_slice, n_blocks)
-            return keys if keys is not None else _bits_side(
-                slot, panel_id, segs_slice, n_blocks)
-        key = ("bits", panel_id, _segs_digest(segs_slice), n_blocks)
-        return _cached(key, lambda: _bits_side(slot, panel_id, segs_slice,
-                                               n_blocks))
-
-    def _limbs(slot, segs_slice, n_blocks, cacheable):
-        colors = plan.seg_color[segs_slice]
-
-        def pack():
-            out = slot.empty((n_blocks, n_limbs, block), np.int8)
-            return _pad_limbs(plan.w_limbs[colors], n_blocks, block, out=out)
-
-        if cache.budget <= 0 or not cacheable:
-            return pack()
-        return _cached(("wl", _segs_digest(colors), n_blocks), pack)
+    def _limbs(slot, segs_slice, n_blocks):
+        out = slot.empty((n_blocks, n_limbs, block), np.int8)
+        return _pad_limbs(plan.w_limbs[plan.seg_color[segs_slice]], n_blocks,
+                          block, out=out)
 
     def prepare(p: int):
         slot = slots.begin(p)
@@ -815,18 +737,15 @@ def iter_panel_pairs(
         e0, e1 = int(plan.pair_off[p]), int(plan.pair_off[p + 1])
         segs_a = plan.ent_sega[e0:e1]
         segs_b = plan.ent_segb[e0:e1]
-        # diagonal pairs' sides are selected by exactly one pair, so only
-        # off-diagonal sides (panel-spanning colors) go through the cache
-        cacheable = pi != pj
         chunks = []
         for cs in range(0, e1 - e0, sup):
             ce = min(cs + sup, e1 - e0)
             n_blocks = pw._round_up(_cdiv(ce - cs, block), shards)
-            side_a = _side(slot, pi, segs_a[cs:ce], n_blocks, cacheable)
+            side_a = _side(slot, pi, segs_a[cs:ce], n_blocks)
             side_b = side_a if pi == pj else _side(
-                slot, pj, segs_b[cs:ce], n_blocks, cacheable)
+                slot, pj, segs_b[cs:ce], n_blocks)
             chunks.append((side_a, side_b,
-                           _limbs(slot, segs_a[cs:ce], n_blocks, cacheable)))
+                           _limbs(slot, segs_a[cs:ce], n_blocks)))
         return pi, pj, chunks, slot
 
     def timed_prepare(p: int):
@@ -853,17 +772,6 @@ def iter_panel_pairs(
             return _PostingsSide((tuple(
                 lane.upload(a) if isinstance(a, np.ndarray) else a
                 for a in payload), n_blocks))
-        if isinstance(side, _CachedSide):
-            key, host, pack = side
-            arr = cache.lookup(key)
-            if arr is None:
-                host = pack() if host is None else host
-                arr = lane.upload(host)
-                cache.put(key, arr, host.nbytes)
-                if key[0] == "bits":
-                    xfer["bits_sides"] += 1
-                    xfer["bits_bytes"] += host.nbytes
-            return arr
         if side.dtype == np.uint8:
             xfer["bits_sides"] += 1
             xfer["bits_bytes"] += side.nbytes
@@ -952,8 +860,6 @@ def iter_panel_pairs(
         ex.shutdown(wait=True, cancel_futures=True)
     if stats is not None:
         stats.update(
-            cache_hits=cache.hits, cache_misses=cache.misses,
-            cache_bytes=cache.nbytes,
             t_pack=t_pack, t_dispatch=t_dispatch, t_extract=t_extract,
             devices=len(devices), pair_parallel=pair_parallel,
             **xfer,
@@ -969,7 +875,6 @@ def stream_pairwise_tsv(
     block: int = 1024,
     min_shared: int = 1,
     echo_progress: bool = False,
-    cache_bytes: Optional[int] = None,
     stats: Optional[dict] = None,
     plan: Optional[PanelPlan] = None,
     device_pack: Optional[str] = None,
@@ -980,23 +885,16 @@ def stream_pairwise_tsv(
     dense writer.  Returns the pair-row count.  ``plan`` reuses a prebuilt
     :func:`build_panel_plan` result; its panel and source shape must match.
     ``device`` is one device or a device list (see :func:`iter_panel_pairs`).
-    ``cache_bytes=None`` gives a 2 GB device side cache on one CUDA device
-    and none on the CPU or on a device list, as kspider_tpu keeps it off on
-    several devices; pass 0 to force it off, or a byte budget.  Pass a
-    dict as ``stats`` (or set ``echo_progress``) for the stage breakdown:
-    pack (host, overlapped), dispatch, extract (device wait + D2H), tsv;
-    the same stages, with the plan and the waits for the pack thread, are
-    ``kspider.*`` ranges in a ``torch.profiler`` trace.
-    With ``KSPIDER_PROFILE`` set, the panel loop and its last flush run
-    under ``utils.timing.profile_trace`` (a no-op inside another one, as
-    under ``core.pairwise.run_pairwise``)."""
-    from kspider_tpu_torch.core.pairwise import write_pairwise_rows_coo
-
+    Pass a dict as ``stats`` (or set ``echo_progress``) for the stage
+    breakdown: pack (host, overlapped), dispatch, extract (device wait +
+    D2H), tsv (the writes); the same stages, with the plan, the waits for
+    the pack thread and each row's sort (``kspider.tsv`` too), are
+    ``kspider.*`` ranges in a ``torch.profiler`` trace.  Rows are grouped
+    and sorted by ``io/pairwise_tsv.iter_panel_rows`` and written by its
+    ``write_rows_coo``.  With ``KSPIDER_PROFILE`` set, the panel loop and
+    its writes run under ``utils.timing.profile_trace`` (a no-op inside
+    another one, as under ``core.pairwise.run_pairwise``)."""
     devices = make_mesh(device)
-    if cache_bytes is None:
-        cache_bytes = 2 << 30 if (
-            len(devices) == 1 and devices[0].type == "cuda") else 0
-
     if plan is None:
         with timed("kspider.plan"):
             plan = build_panel_plan(
@@ -1021,56 +919,26 @@ def stream_pairwise_tsv(
                 f"n={plan.n}, src_shape={plan.src_shape}; index has "
                 f"(n, offsets, postings)={want}"
             )
-    counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
+    counts = pw_tsv.kmer_counts(index)
     path = prefix + "_kSpider_pairwise.tsv"
+    empty = np.zeros(0, np.int64)
+    pw_tsv.write_rows_coo(path, empty, empty, empty, counts, header=True)
 
     total = 0
-    first = True
     t_tsv = 0.0
     run_stats: dict = {} if stats is None else stats
-    current_row = -1
-    buf_i, buf_j, buf_v = [], [], []
-
-    def flush():
-        nonlocal total, first, t_tsv
-        if not buf_i:
-            return
-        t0 = time.perf_counter()
-        with record_function("kspider.tsv"):
-            gi = np.concatenate(buf_i)
-            gj = np.concatenate(buf_j)
-            sv = np.concatenate(buf_v)
-            order = np.lexsort((gj, gi))
-            write_pairwise_rows_coo(
-                path, gi[order], gj[order], sv[order], counts, header=first
-            )
-        first = False
-        total += len(gi)
-        buf_i.clear()
-        buf_j.clear()
-        buf_v.clear()
-        t_tsv += time.perf_counter() - t0
-
     with profile_trace(devices):
-        for pi, pj, gi, gj, vals in iter_panel_pairs(
+        for pi, gi, gj, sv in pw_tsv.iter_panel_rows(iter_panel_pairs(
             plan, device=devices, block=block, min_shared=min_shared,
-            cache_bytes=cache_bytes, stats=run_stats, device_pack=device_pack,
-        ):
-            if pi != current_row:
-                flush()
-                current_row = pi
-                if echo_progress:
-                    print(f"  panel row {pi + 1}/{plan.n_panels}", flush=True)
-            buf_i.append(gi)
-            buf_j.append(gj)
-            buf_v.append(vals)
-        flush()
-    if first:  # no pairs at all: still write the header
-        write_pairwise_rows_coo(
-            path,
-            np.zeros(0, np.int64), np.zeros(0, np.int64),
-            np.zeros(0, np.int64), counts, header=True,
-        )
+            stats=run_stats, device_pack=device_pack,
+        )):
+            if echo_progress:
+                print(f"  panel row {pi + 1}/{plan.n_panels}", flush=True)
+            t0 = time.perf_counter()
+            with record_function("kspider.tsv"):
+                pw_tsv.write_rows_coo(path, gi, gj, sv, counts, header=False)
+            total += len(gi)
+            t_tsv += time.perf_counter() - t0
     run_stats["t_tsv"] = t_tsv
     if echo_progress:
         print(
@@ -1092,11 +960,4 @@ def stream_pairwise_tsv(
                       else "color blocks of each pair split")
             print(f"  devices: {', '.join(map(str, devices))} ({layout})",
                   flush=True)
-        if cache_bytes:
-            print(
-                f"  device side-cache: {run_stats['cache_hits']} hits / "
-                f"{run_stats['cache_misses']} misses "
-                f"({run_stats['cache_bytes'] / 1e6:.1f}MB resident)",
-                flush=True,
-            )
     return total

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
 from kspider_tpu_torch.parallel import distributed
 from kspider_tpu_torch.parallel.mesh import make_mesh
 
@@ -273,7 +274,7 @@ def run_distributed_tiled_pairwise(
         index.color_offsets, index.color_members, index.color_counts,
         index.num_groups, panel,
     )
-    counts = np.where(index.group_kmer_count < 0, 0, index.group_kmer_count)
+    counts = pw_tsv.kmer_counts(index)
     owner = assign_panel_rows(tp.panel_row_work(plan), nproc)
     sub = tp.filter_plan_rows(plan, np.flatnonzero(owner == pid))
     # the part writer appends: process 0 clears every stale part of a
@@ -285,39 +286,13 @@ def run_distributed_tiled_pairwise(
     barrier()
 
     total_local = 0
-    current_row = -1
-    buf_i: List[np.ndarray] = []
-    buf_j: List[np.ndarray] = []
-    buf_v: List[np.ndarray] = []
-
-    def flush():
-        nonlocal total_local
-        if current_row < 0 or not buf_i:
-            return
-        gi = np.concatenate(buf_i)
-        gj = np.concatenate(buf_j)
-        sv = np.concatenate(buf_v)
-        order = np.lexsort((gj, gi))
-        core_pairwise.write_pairwise_rows_coo(
-            _part_path(prefix, current_row),
-            gi[order], gj[order], sv[order], counts, header=False,
-        )
-        total_local += len(gi)
-        buf_i.clear()
-        buf_j.clear()
-        buf_v.clear()
-
-    for pi, pj, gi, gj, vals in tp.iter_panel_pairs(
+    for pi, gi, gj, sv in pw_tsv.iter_panel_rows(tp.iter_panel_pairs(
         sub, device="cpu" if device is None else device, block=block,
         min_shared=min_shared, device_pack=device_pack,
-    ):
-        if pi != current_row:
-            flush()
-            current_row = pi
-        buf_i.append(gi)
-        buf_j.append(gj)
-        buf_v.append(vals)
-    flush()
+    )):
+        pw_tsv.write_rows_coo(_part_path(prefix, pi), gi, gj, sv, counts,
+                              header=False)
+        total_local += len(gi)
 
     if pid == 0:
         core_pairwise.write_seq_to_kmers_tsv(prefix, index)
@@ -332,7 +307,7 @@ def run_distributed_tiled_pairwise(
 
     if pid == 0:
         path = prefix + "_kSpider_pairwise.tsv"
-        core_pairwise.write_pairwise_rows_coo(
+        pw_tsv.write_rows_coo(
             path,
             np.zeros(0, np.int64), np.zeros(0, np.int64),
             np.zeros(0, np.int64), counts, header=True,

@@ -12,8 +12,8 @@ builds its index on the host and saves the color CSR and k-mer counts to
 parent commit unpacked into a directory can be run in turn with this one)
 and measures, at panel P (default 4,096) after one warm-up pass:
 
-1. the engine without the TSV (``iter_panel_pairs``, the 2 GB side cache,
-   as the CLI runs it on one card) under ``torch.profiler``: its wall, the
+1. the engine without the TSV (``iter_panel_pairs``, as the CLI runs it
+   on one card) under ``torch.profiler``: its wall, the
    device's busy time (the union of kernels, copies and sets), the Gram
    kernel's device ms, and per pair the host waits
    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
@@ -214,8 +214,7 @@ def run(args):
         t0 = time.perf_counter()
         rows = 0
         for _, _, gi, _, _ in ttp.iter_panel_pairs(
-                plan, device=dev, min_shared=args.min_shared,
-                cache_bytes=2 << 30, stats=stats):
+                plan, device=dev, min_shared=args.min_shared, stats=stats):
             rows += len(gi)
         torch.cuda.synchronize()
         return rows, (time.perf_counter() - t0) * 1000.0
@@ -247,8 +246,7 @@ def run(args):
         result["stage"] = dict(
             wall_s=time.perf_counter() - t0, rows=n_rows,
             **{k: stats[k] for k in ("t_pack", "t_dispatch", "t_extract",
-                                     "t_tsv", "bits_bytes", "keys_bytes",
-                                     "cache_hits", "cache_misses")})
+                                     "t_tsv", "bits_bytes", "keys_bytes")})
         tsv = prefix + "_kSpider_pairwise.tsv"
         if args.tsv:
             os.replace(tsv, args.tsv)

@@ -180,8 +180,10 @@ def test_device_pack_composes_with_big_weights_escapes_and_cache():
     want = list(jtp.iter_panel_pairs(jplan, engine="xla", block=128, tile=128))
     stats = {}
     assert_same_stream(iter(want), ttp.iter_panel_pairs(
-        tplan, device="cpu", block=128, device_pack="force",
-        cache_bytes=1 << 30, stats=stats))
-    # cached off-diagonal sides ship packed bits, diagonal ones posting keys
-    assert stats["keys_sides"] > 0 and stats["bits_sides"] > 0
-    assert stats["cache_misses"] > 0
+        tplan, device="cpu", block=128, device_pack="force", stats=stats))
+    # every side ships as posting keys, off-diagonal and diagonal alike: one
+    # side a diagonal pair, two an off-diagonal one (each pair one chunk)
+    pi, pj = divmod(tplan.pair_keys, tplan.n_panels)
+    assert (pi == pj).any() and (pi != pj).any()
+    assert stats["keys_sides"] == int((pi == pj).sum() + 2 * (pi != pj).sum())
+    assert stats["bits_sides"] == 0

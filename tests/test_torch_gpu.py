@@ -223,15 +223,22 @@ def test_tiled_stream_on_card_equals_cpu(cuda_device, tmp_path, device_pack):
     rows = ttp.stream_pairwise_tsv(
         index, str(tmp_path / "card"), device=cuda_device, panel=256,
         block=BLOCK, device_pack=device_pack, stats=stats)
+    on_cpu = {}
     ttp.stream_pairwise_tsv(index, str(tmp_path / "cpu"), device="cpu",
-                            panel=256, block=BLOCK, device_pack=device_pack)
+                            panel=256, block=BLOCK, device_pack=device_pack,
+                            stats=on_cpu)
     assert rows > 0
     with open(str(tmp_path / "card") + "_kSpider_pairwise.tsv", "rb") as a, \
             open(str(tmp_path / "cpu") + "_kSpider_pairwise.tsv", "rb") as b:
         assert a.read() == b.read()
     assert cp.LAUNCHES_BY_MODE["upper"] > before["upper"]
     assert cp.LAUNCHES_BY_MODE["all"] > before["all"]
-    assert stats["cache_misses"] > 0  # the 2 GB cache is on for a card
+    # the card ships each side in the form the CPU does: all posting keys
+    # under force, all host-packed bits under off
+    forms = ("keys_sides", "bits_sides", "keys_bytes", "bits_bytes")
+    assert {k: stats[k] for k in forms} == {k: on_cpu[k] for k in forms}
+    assert (stats["bits_sides"] == 0) == (device_pack == "force")
+    assert (stats["keys_sides"] == 0) == (device_pack == "off")
 
 
 @pytest.mark.gpu

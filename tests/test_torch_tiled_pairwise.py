@@ -227,26 +227,6 @@ def test_iter_panel_pairs_big_weights_multichunk_match_jax(monkeypatch):
     )
 
 
-def test_iter_panel_pairs_side_cache_evicts_and_hits():
-    n = 1300
-    o, m, w = _global_color_csr(np.random.default_rng(29), n, 256, 60)
-    jplan, tplan = both_plans(o, m, w, n, 256)
-    want = list(jtp.iter_panel_pairs(jplan, engine="xla", block=BLOCK,
-                                     tile=TILE))
-    runs = {}
-    for budget in (1 << 30, 20_000):
-        stats = {}
-        assert_same_stream(
-            iter(want),
-            ttp.iter_panel_pairs(tplan, device="cpu", block=BLOCK,
-                                 cache_bytes=budget, stats=stats),
-        )
-        assert stats["cache_hits"] > 0 and stats["cache_bytes"] <= budget
-        runs[budget] = stats
-    # the small budget evicted entries the big one kept
-    assert runs[20_000]["cache_misses"] > runs[1 << 30]["cache_misses"]
-
-
 # ---- streamed TSV --------------------------------------------------------------
 
 
@@ -285,6 +265,33 @@ def test_stream_tsv_empty_is_header_only(tmp_path):
                                    panel=256) == 0
     assert _tsv(str(tmp_path / "port")) == _tsv(str(tmp_path / "jax"))
     assert _tsv(str(tmp_path / "port")).count(b"\n") == 1
+
+
+def test_stream_and_from_index_ship_sides_alike(tmp_path, monkeypatch):
+    """``pairwise`` on the tiled engine (``stream_pairwise_tsv``) and
+    ``cluster --from-index`` (``iter_panel_pairs`` straight) ship every side
+    of one plan in the same form: posting keys or host-packed bits, by
+    ``bitmask.prefer_keys`` alone."""
+    # a ratio at which auto ships some sides as keys and some as bits
+    monkeypatch.setenv("KSPIDER_DEVICE_PACK_RATIO", "3")
+    rng = np.random.default_rng(37)
+    n = 1100
+    o, m, w = random_csr(rng, 900, n, max_degree=12, max_weight=40000)
+    idx = _FakeIndex(o, m, w, n, rng.integers(1, 100000, size=n))
+    plan = ttp.build_panel_plan(o, m, w, n, 256)
+    streamed, direct = {}, {}
+    ttp.stream_pairwise_tsv(idx, str(tmp_path / "port"), device="cpu",
+                            panel=256, block=BLOCK, plan=plan, stats=streamed,
+                            device_pack="auto")
+    for _ in ttp.iter_panel_pairs(plan, device="cpu", block=BLOCK,
+                                  stats=direct, device_pack="auto"):
+        pass
+    forms = ("keys_sides", "bits_sides", "keys_bytes", "bits_bytes")
+    assert {k: streamed[k] for k in forms} == {k: direct[k] for k in forms}
+    assert direct["keys_sides"] > 0 and direct["bits_sides"] > 0
+    # off-diagonal pairs as well as diagonal ones
+    pi, pj = divmod(plan.pair_keys, plan.n_panels)
+    assert (pi != pj).any()
 
 
 def _family_index(seed, n_families=12, per_family=8):
@@ -431,22 +438,23 @@ def test_stream_tsv_on_a_device_list_matches_jax(tmp_path, panel, devices,
     assert rows > 0
     assert stats["pair_parallel"] == pair_parallel
     assert stats["devices"] == len(ttp.make_mesh(devices))
-    assert stats["cache_bytes"] == 0  # a device list turns the cache off
     assert _tsv(port_prefix) == _tsv(jax_prefix) == _tsv(one_prefix)
 
 
 @pytest.mark.parametrize("big", [False, True])
 def test_iter_panel_pairs_sharded_matches_jax_mesh(big):
     """Per-pair sharding against kspider_tpu's ``mesh=`` engine, also with
-    weights whose sums pass 2**31."""
+    weights whose sums pass 2**31: panels of 512 give 3 pairs, fewer than
+    two per device, so each pair's color blocks are split."""
     from kspider_tpu.parallel.mesh import make_mesh
 
     o, m, w = csr(59, n_colors=300 if big else 500,
                   max_weight=50 if big else 40000)
     if big:
         w = w * (1 << 27)
-    jplan, tplan = both_plans(o, m, w, 700, 256)
+    jplan, tplan = both_plans(o, m, w, 700, 512)
     assert (tplan.max_weight_sum >= 2**31) == big
+    assert len(tplan.pair_keys) == 3
     calls = []
     real = cp.cooccurrence_tiles
 
@@ -461,7 +469,7 @@ def test_iter_panel_pairs_sharded_matches_jax_mesh(big):
             jtp.iter_panel_pairs(jplan, block=BLOCK, tile=TILE,
                                  mesh=make_mesh(2)),
             ttp.iter_panel_pairs(tplan, device=["cpu", "cpu"], block=BLOCK,
-                                 cache_bytes=1 << 20, stats=stats),
+                                 stats=stats),
         )
     finally:
         cp.cooccurrence_tiles = real
