@@ -16,7 +16,6 @@ import ctypes
 import functools
 import logging
 import os
-import shlex
 
 import numpy as np
 
@@ -25,25 +24,13 @@ from kspider_tpu_torch.ops import _build
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "tsv_rows.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-CXX_FLAGS = ("-O3", "-std=c++17", "-pthread", "-fPIC", "-shared")
 
 _log = logging.getLogger(__name__)
 
 
-def compiler() -> list:
-    """``$CXX`` split into words, else ``g++``."""
-    return shlex.split(os.environ.get("CXX") or "g++")
-
-
-def library_path() -> str:
-    return _build.hashed_path(BUILD_DIR, "libkspider_tsv",
-                              compiler() + list(CXX_FLAGS), [SOURCE])
-
-
 def build() -> str:
     """Compile the source unless the hashed library exists; returns its path."""
-    return _build.build_library(library_path(), lambda tmp: [
-        [[*compiler(), *CXX_FLAGS, SOURCE, "-o", f"{tmp}.tmp"]]])
+    return _build.build_host(BUILD_DIR, "libkspider_tsv", SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

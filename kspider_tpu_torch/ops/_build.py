@@ -7,8 +7,9 @@ with a plain C interface, loaded with ``ctypes``.  The library lands in
 the headers they include and the flags, so an edited source or header is
 rebuilt and a stale build is never loaded.  Nothing is compiled at import
 time.  :func:`hashed_path` and :func:`build_library` build every shared
-library of the port, the host compiler's TSV library of ``io/tsv_rows``
-too.
+library of the port; :func:`build_host` builds its host C++ libraries (the
+TSV library of ``io/tsv_rows``, the panel plan of ``ops/tiled_pairwise``)
+with the host compiler, never ``nvcc``.
 """
 
 import ctypes
@@ -16,6 +17,7 @@ import functools
 import glob
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+#: flags of the host C++ libraries
+CXX_FLAGS = ("-O3", "-std=c++17", "-pthread", "-fPIC", "-shared")
 
 
 def find_nvcc() -> str:
@@ -79,6 +83,20 @@ def build_library(path: str, stages) -> str:
         os.remove(obj)
     os.replace(f"{tmp}.tmp", path)
     return path
+
+
+def compiler() -> list:
+    """The host C++ compiler: ``$CXX`` split into words, else ``g++``."""
+    return shlex.split(os.environ.get("CXX") or "g++")
+
+
+def build_host(build_dir: str, stem: str, source: str) -> str:
+    """Compile the host C++ ``source`` into ``<build_dir>/<stem>_<hash>.so``
+    with :func:`compiler` and ``CXX_FLAGS`` unless it exists; returns its
+    path."""
+    words = compiler() + list(CXX_FLAGS)
+    return build_library(hashed_path(build_dir, stem, words, [source]),
+                         lambda tmp: [[[*words, source, "-o", f"{tmp}.tmp"]]])
 
 
 def _run(cmd):

@@ -4,7 +4,7 @@ Counterpart of ``kspider_tpu/ops/tiled_pairwise.py``.  Samples are cut into
 panels of ``panel`` ids.  A color contributes to panel pair (I, J) only if
 it has a member in each panel (two members in I for the diagonal pair),
 so :func:`build_panel_plan` decomposes the color CSR into per-pair work
-lists once, on the host.  Each panel pair then runs the hand-written Gram
+lists once, on the host (in C++, ``csrc/panel_plan.cpp``).  Each panel pair then runs the hand-written Gram
 kernel through :func:`cooccurrence_tiles` on two compact sides:
 
 - a diagonal pair (I, I) runs the upper tiles of one side (the TPU's
@@ -49,7 +49,9 @@ waits on the same event, not behind the pairs queued after it.  On the CPU
 the same code runs without pinning or streams.
 """
 
+import ctypes
 import functools
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -60,7 +62,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from kspider_tpu_torch.io import native
 from kspider_tpu_torch.io import pairwise_tsv as pw_tsv
+from kspider_tpu_torch.ops import _build
 from kspider_tpu_torch.ops import bitmask as bm
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as pw
@@ -109,7 +113,13 @@ def build_panel_plan(
     n: int,
     panel: int,
 ) -> PanelPlan:
-    """Decompose the color CSR into per-panel-pair work lists."""
+    """Decompose the color CSR into per-panel-pair work lists.
+
+    The segments and entries come from ``csrc/panel_plan.cpp``; where its
+    library cannot build or load (``native.report_fallback`` says so), under
+    ``KSPIDER_NATIVE=off``, or with more than ``PLAN_TABLE_KEYS`` panel
+    pairs, numpy builds the same arrays under the ``kspider.plan_numpy``
+    range."""
     offsets = np.asarray(offsets, dtype=np.int64)
     members = np.asarray(members)  # sample ids < n always fit int32
     weights = np.asarray(weights, dtype=np.int64)
@@ -131,7 +141,57 @@ def build_panel_plan(
     )
     if len(keep) == 0 or n == 0:
         return empty
+    if offsets[0] != 0 or offsets[-1] != len(members) or (degrees < 0).any():
+        raise ValueError("color offsets must rise from 0 to len(members)")
 
+    lib = (_plan_library() if n_panels * n_panels <= PLAN_TABLE_KEYS
+           else None)
+    if lib is not None:
+        parts = _native_plan(lib, offsets, members, degrees, keep, n, panel,
+                             n_panels)
+    else:
+        with timed("kspider.plan_numpy"):
+            parts = _numpy_plan(offsets, members, degrees, keep, panel,
+                                n_panels)
+    if parts is None:
+        return empty
+    mem_s, seg_start, seg_count, seg_color, pair_keys, pair_off, sa, sb = parts
+    kept_w = weights[keep]
+    return PanelPlan(
+        n=n, panel=panel, n_panels=n_panels,
+        mem_s=mem_s,
+        seg_start=seg_start,
+        seg_count=seg_count,
+        seg_color=seg_color,
+        w_limbs=pw.weight_limbs(kept_w),
+        pair_keys=pair_keys,
+        pair_off=pair_off,
+        ent_sega=sa,
+        ent_segb=sb,
+        max_weight_sum=int(kept_w.sum()),
+        src_shape=(int(n), len(offsets), len(members)),
+    )
+
+
+def _compact_sorted(offsets, members, degrees, keep):
+    """The kept colors' postings as a CSR sorted by (color, member): its
+    offsets, int32 members and int32 color ids, for a CSR whose colors do
+    not keep their members ascending."""
+    kept_deg = degrees[keep]
+    new_off = np.zeros(len(keep) + 1, dtype=np.int64)
+    np.cumsum(kept_deg, out=new_off[1:])
+    gather = np.repeat(offsets[keep], kept_deg) + (
+        np.arange(int(kept_deg.sum())) - np.repeat(new_off[:-1], kept_deg)
+    )
+    mem = members[gather].astype(np.int32, copy=False)
+    cid = np.repeat(np.arange(len(keep), dtype=np.int32), kept_deg)
+    order = np.lexsort((mem, cid))
+    return new_off, mem[order], cid[order]
+
+
+def _numpy_plan(offsets, members, degrees, keep, panel, n_panels):
+    """The plan's posting, segment and entry arrays in numpy, or None
+    where no panel pair has work."""
     # ColorIndex CSRs keep each color's members ascending.  Then segments
     # are computed on the posting array itself (color boundaries are the
     # CSR offsets) and mem_s aliases the caller's members; only external
@@ -142,17 +202,7 @@ def build_panel_plan(
         np.isin(viol, offsets[1:-1]).all()
     )
     if unsorted_within:
-        kept_deg = degrees[keep]
-        new_off = np.zeros(len(keep) + 1, dtype=np.int64)
-        np.cumsum(kept_deg, out=new_off[1:])
-        gather = np.repeat(offsets[keep], kept_deg) + (
-            np.arange(int(kept_deg.sum())) - np.repeat(new_off[:-1], kept_deg)
-        )
-        mem = members[gather].astype(np.int32, copy=False)
-        cid = np.repeat(np.arange(len(keep), dtype=np.int32), kept_deg)
-        order = np.lexsort((mem, cid))
-        mem_s = mem[order]
-        cid_s = cid[order]
+        _, mem_s, cid_s = _compact_sorted(offsets, members, degrees, keep)
         pan_s = mem_s // np.int32(panel)
         new_seg = np.empty(len(cid_s), dtype=bool)
         new_seg[0] = True
@@ -222,31 +272,103 @@ def build_panel_plan(
     sa = np.concatenate(ent_sa)
     sb = np.concatenate(ent_sb)
     if len(pa) == 0:
-        return empty
+        return None
     pk = pa.astype(np.int64) * n_panels + pb
     order2 = np.argsort(pk, kind="stable")
     pk_s, sa_s, sb_s = pk[order2], sa[order2], sb[order2]
-    pair_keys, pair_first, pair_cnt = np.unique(
-        pk_s, return_index=True, return_counts=True
-    )
+    pair_keys, pair_cnt = np.unique(pk_s, return_counts=True)
     pair_off = np.zeros(len(pair_keys) + 1, dtype=np.int64)
     np.cumsum(pair_cnt, out=pair_off[1:])
+    return (mem_s, seg_start.astype(np.int64), seg_count.astype(np.int64),
+            seg_color, pair_keys, pair_off, sa_s.astype(np.int64),
+            sb_s.astype(np.int64))
 
-    kept_w = weights[keep]
-    return PanelPlan(
-        n=n, panel=panel, n_panels=n_panels,
-        mem_s=mem_s,
-        seg_start=seg_start.astype(np.int64),
-        seg_count=seg_count.astype(np.int64),
-        seg_color=seg_color,
-        w_limbs=pw.weight_limbs(kept_w),
-        pair_keys=pair_keys,
-        pair_off=pair_off,
-        ent_sega=sa_s.astype(np.int64),
-        ent_segb=sb_s.astype(np.int64),
-        max_weight_sum=int(kept_w.sum()),
-        src_shape=(int(n), len(offsets), len(members)),
-    )
+
+# ---- the panel plan in host C++ --------------------------------------------
+
+_PLAN_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "panel_plan.cpp")
+#: the most panel pairs (``n_panels ** 2``) whose entry counts the native
+#: plan keeps in one table; more take the numpy plan
+PLAN_TABLE_KEYS = 1 << 22
+
+
+@functools.lru_cache(maxsize=None)
+def _load_plan_library():
+    """(library, None) once built and bound, else (None, the exception):
+    a failed build is tried once a process."""
+    try:
+        lib = ctypes.CDLL(_build.build_host(_build.BUILD_DIR,
+                                            "libkspider_plan", _PLAN_SOURCE))
+    except Exception as exc:
+        return None, exc
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    # offsets, n_colors, members, n, panel, seg_start, seg_count,
+    # seg_color, seg_panel, col_t, n_kept
+    lib.ks_plan_segments.restype = i64
+    lib.ks_plan_segments.argtypes = [vp, i64, vp, i64, i64] + [vp] * 5 + [
+        ctypes.POINTER(i64)]
+    # col_t, n_kept, seg_count, seg_panel, n_panels, key_count, ent_sega,
+    # ent_segb
+    lib.ks_plan_entries.restype = i64
+    lib.ks_plan_entries.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp]
+    return lib, None
+
+
+def _plan_library():
+    """The native plan's library, or None where numpy builds the plan:
+    under ``KSPIDER_NATIVE=off``, or (reported) where it cannot load."""
+    if not native.enabled():
+        return None
+    lib, exc = _load_plan_library()
+    if exc is not None:
+        native.report_fallback("panel_plan", exc)
+    return lib
+
+
+def _native_plan(lib, offsets, members, degrees, keep, n, panel, n_panels):
+    """:func:`_numpy_plan`'s arrays from ``csrc/panel_plan.cpp``: each pass
+    once to count, so every array is allocated at its size, once to fill."""
+    mem_s = np.ascontiguousarray(members, dtype=np.int32)
+    n_kept = ctypes.c_int64()
+
+    def segments(off, outs=(None,) * 5):
+        return lib.ks_plan_segments(
+            off.ctypes.data, len(off) - 1, mem_s.ctypes.data, n, panel,
+            *[None if o is None else o.ctypes.data for o in outs],
+            ctypes.byref(n_kept))
+
+    n_segs = segments(offsets)
+    if n_segs == -1:  # a color's members are not ascending
+        offsets, mem_s, _ = _compact_sorted(offsets, members, degrees, keep)
+        n_segs = segments(offsets)
+    if n_segs < 0:
+        raise ValueError(f"a color member lies outside [0, {n})")
+    seg_start, seg_count, seg_color = (np.empty(n_segs, np.int64)
+                                       for _ in range(3))
+    seg_panel = np.empty(n_segs, np.int32)
+    col_t = np.empty(n_kept.value, np.int32)
+    segments(offsets, (seg_start, seg_count, seg_color, seg_panel, col_t))
+
+    key_count = np.zeros(n_panels * n_panels, np.int64)
+
+    def entries(sega=None, segb=None):
+        return lib.ks_plan_entries(
+            col_t.ctypes.data, len(col_t), seg_count.ctypes.data,
+            seg_panel.ctypes.data, n_panels, key_count.ctypes.data,
+            None if sega is None else sega.ctypes.data,
+            None if segb is None else segb.ctypes.data)
+
+    n_ent = entries()
+    if n_ent == 0:
+        return None
+    ent_sega, ent_segb = np.empty(n_ent, np.int64), np.empty(n_ent, np.int64)
+    entries(ent_sega, ent_segb)
+    pair_keys = np.flatnonzero(key_count)
+    pair_off = np.zeros(len(pair_keys) + 1, dtype=np.int64)
+    np.cumsum(key_count[pair_keys], out=pair_off[1:])
+    return (mem_s, seg_start, seg_count, seg_color, pair_keys, pair_off,
+            ent_sega, ent_segb)
 
 
 def panel_row_work(plan: PanelPlan) -> np.ndarray:

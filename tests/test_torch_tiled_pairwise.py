@@ -6,15 +6,19 @@ and through the port on the CPU (the Gram kernel's plain torch version).
 Tolerance everywhere: exact.  The plan fields, the re-homed host packers,
 each chunk's raw int32 limb accumulators, the yielded
 ``(pi, pj, gi, gj, shared)`` sequence, the streamed TSV bytes and the
-clusters of ``cluster_from_index`` must all be equal.
+clusters of ``cluster_from_index`` must all be equal.  The plan is also
+held against the port's own numpy plan (``KSPIDER_NATIVE=off``, a library
+that cannot load, more panel pairs than the native plan's key table).
 """
 
 import filecmp
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from kspider_tpu.core import cluster as jcluster
 from kspider_tpu.ops import pairwise as jpw
@@ -22,6 +26,7 @@ from kspider_tpu.ops import pallas_pairwise as jpp
 from kspider_tpu.ops import tiled_pairwise as jtp
 from kspider_tpu_torch.core import cluster as tcluster
 from kspider_tpu_torch.core import pairwise as tpairwise
+from kspider_tpu_torch.io import native as t_native
 from kspider_tpu_torch.ops import cuda_pairwise as cp
 from kspider_tpu_torch.ops import pairwise as tpw
 from kspider_tpu_torch.ops import tiled_pairwise as ttp
@@ -65,26 +70,176 @@ def _unsorted(o, m, w):
     return o, m, w
 
 
-@pytest.mark.parametrize("case", ["sorted", "unsorted", "singletons", "no_samples"])
-@pytest.mark.parametrize("panel", [128, 300])
-def test_build_panel_plan_matches_jax(case, panel):
+def _with_colors(o, m, w, extra):
+    """The CSR with the colors ``extra`` (member lists) appended."""
+    deg = np.array([len(x) for x in extra], np.int64)
+    o = np.concatenate([o, o[-1] + np.cumsum(deg)])
+    m = np.concatenate([m] + [np.asarray(x, m.dtype) for x in extra])
+    return o, m, np.concatenate([w, np.arange(1, len(extra) + 1)])
+
+
+def _with_duplicates(o, m, w):
+    """Every seventh color holds its first member twice, and two colors are
+    one member twice: duplicate (color, member) postings."""
+    cols = [m[o[c]:o[c + 1]] for c in range(len(o) - 1)]
+    cols = [np.insert(x, 0, x[0]) if c % 7 == 0 else x
+            for c, x in enumerate(cols)]
+    o = np.zeros(len(cols) + 1, np.int64)
+    np.cumsum([len(x) for x in cols], out=o[1:])
+    return _with_colors(o, np.concatenate(cols), w, [[5, 5], [699, 699]])
+
+
+def _spanning(o, m, w, n, panel):
+    """Colors whose members lie in every panel (two in some panels)."""
+    rng = np.random.default_rng(panel)
+    extra = []
+    for _ in range(40):
+        per = [lo + rng.choice(min(panel, n - lo), size=rng.integers(1, 3),
+                               replace=False) for lo in range(0, n, panel)]
+        extra.append(np.unique(np.concatenate(per)))
+    return _with_colors(o, m, w, extra)
+
+
+def _datagen_csr(seed, genomes=4096):
+    """``gpubench.datagen``'s collection at a reduced N: species of 8
+    scattered over the ids, so a color spans up to 8 panels of 512."""
+    from gpubench import datagen
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "gpubench", "configs", "gtdb-derep-32k.json")) as f:
+        config = dict(json.load(f), genomes=genomes)
+    col = datagen.generate(config, seed)
+    return col.offsets, col.members, col.counts, genomes
+
+
+def plan_case(case, panel, seed=None):
+    """(offsets, members, weights, n) of one named CSR case."""
     n = 700
+    seed = panel if seed is None else seed
     if case == "singletons":
-        o, m, w = np.arange(6, dtype=np.int64), np.arange(5), np.ones(5, np.int64)
-    elif case == "no_samples":
-        o, m, w, n = np.zeros(1, np.int64), np.zeros(0, np.int32), \
+        return np.arange(6, dtype=np.int64), np.arange(5), np.ones(5, np.int64), n
+    if case == "no_samples":
+        return np.zeros(1, np.int64), np.zeros(0, np.int32), \
             np.zeros(0, np.int64), 0
-    else:
-        o, m, w = csr(panel)
-        if case == "unsorted":
-            o, m, w = _unsorted(o, m, w)
-    want, got = both_plans(o, m, w, n, panel)
+    if case == "datagen":
+        return _datagen_csr(2147491711 + seed)
+    o, m, w = csr(seed)
+    if case == "unsorted":
+        o, m, w = _unsorted(o, m, w)
+    elif case == "duplicates":
+        o, m, w = _with_duplicates(o, m, w)
+    elif case == "spanning":
+        o, m, w = _spanning(o, m, w, n, panel)
+    return o, m, w, n
+
+
+def assert_same_plan(want, got):
     for field in PLAN_FIELDS:
         a, b = getattr(want, field), getattr(got, field)
         if isinstance(a, np.ndarray):
             assert a.dtype == b.dtype and np.array_equal(a, b), field
         else:
             assert a == b, field
+
+
+def plan_with_ranges(*args):
+    """build_panel_plan(*args) under a CPU profiler: the plan and the names
+    of the ranges it opened."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        plan = ttp.build_panel_plan(*args)
+    return plan, {e.name for e in prof.events()}
+
+
+@pytest.mark.parametrize("panel,case", [
+    (p, c) for p in (128, 300)
+    for c in ("sorted", "unsorted", "singletons", "no_samples")
+] + [
+    (1024, "sorted"),  # one panel
+    (2, "sorted"),  # 350 panels: pair keys beyond uint16
+    (2, "unsorted"),
+    (128, "duplicates"),
+    (300, "duplicates"),
+    (128, "spanning"),
+    (512, "datagen"),
+])
+def test_build_panel_plan_matches_jax(case, panel):
+    o, m, w, n = plan_case(case, panel)
+    want, got = both_plans(o, m, w, n, panel)
+    assert_same_plan(want, got)
+    if case == "datagen":
+        assert np.bincount(got.seg_color).max() == 8
+    if case == "spanning":
+        assert np.bincount(got.seg_color).max() == got.n_panels
+
+
+@pytest.mark.parametrize("native_mode", ["auto", "off"])
+@pytest.mark.parametrize("case", ["sorted", "unsorted"])
+@pytest.mark.parametrize("seed", [3, 17, 29])
+def test_native_plan_matches_numpy_plan(monkeypatch, native_mode, case, seed):
+    """The plan under ``KSPIDER_NATIVE=native_mode`` equals the numpy
+    plan, field by field; only the numpy plan opens ``kspider.plan_numpy``."""
+    rng = np.random.default_rng(seed)
+    panel = int(rng.choice([1, 7, 64, 128, 300, 1000]))
+    o, m, w = csr(seed, max_degree=int(rng.integers(2, 30)))
+    if case == "unsorted":
+        o, m, w = _unsorted(o, m, w)
+    monkeypatch.setenv("KSPIDER_NATIVE", "off")
+    want, numpy_ranges = plan_with_ranges(o, m, w, 700, panel)
+    monkeypatch.setenv("KSPIDER_NATIVE", native_mode)
+    got, ranges = plan_with_ranges(o, m, w, 700, panel)
+    assert_same_plan(want, got)
+    assert "kspider.plan_numpy" in numpy_ranges
+    assert ("kspider.plan_numpy" in ranges) == (native_mode == "off")
+    if case == "sorted":  # the postings are the caller's
+        assert np.shares_memory(got.mem_s, m)
+
+
+def test_plan_falls_back_to_numpy_where_the_library_cannot_load(monkeypatch):
+    o, m, w = csr(11)
+    want = ttp.build_panel_plan(o, m, w, 700, 128)
+    monkeypatch.setattr(t_native, "_warned_fallbacks", set())
+    monkeypatch.setattr(ttp, "_load_plan_library",
+                        lambda: (None, RuntimeError("no host compiler")))
+    with pytest.warns(RuntimeWarning, match="'panel_plan'.*no host compiler"):
+        got, ranges = plan_with_ranges(o, m, w, 700, 128)
+    assert_same_plan(want, got)
+    assert "kspider.plan_numpy" in ranges
+    monkeypatch.setenv("KSPIDER_NATIVE", "force")
+    with pytest.raises(t_native.NativeRequiredError, match="panel_plan"):
+        ttp.build_panel_plan(o, m, w, 700, 128)
+
+
+def test_plan_takes_numpy_above_the_key_table_guard(monkeypatch):
+    """More than ``PLAN_TABLE_KEYS`` panel pairs: the numpy plan, with no
+    fallback reported (so none under ``KSPIDER_NATIVE=force`` either)."""
+    o, m, w = csr(13)
+    want, ranges = plan_with_ranges(o, m, w, 700, 128)  # 6 panels, 36 keys
+    assert "kspider.plan_numpy" not in ranges
+    monkeypatch.setattr(ttp, "PLAN_TABLE_KEYS", 35)
+    monkeypatch.setenv("KSPIDER_NATIVE", "force")
+    got, ranges = plan_with_ranges(o, m, w, 700, 128)
+    assert_same_plan(want, got)
+    assert "kspider.plan_numpy" in ranges
+
+
+@pytest.mark.parametrize("fault", ["member_at_n", "negative_member",
+                                   "offsets_short", "offsets_from_1"])
+def test_plan_refuses_a_malformed_csr(fault):
+    o, m, w = csr(19)
+    if fault == "member_at_n":
+        m = m.copy()
+        m[o[3] + 1] = 700
+    elif fault == "negative_member":
+        m = m.copy()
+        m[o[3]] = -1
+    elif fault == "offsets_short":
+        o = o.copy()
+        o[-1] -= 1
+    else:
+        o = o.copy()
+        o[0] = 1
+    with pytest.raises(ValueError):
+        ttp.build_panel_plan(o, m, w, 700, 128)
 
 
 @pytest.mark.parametrize("native_mode", ["auto", "off"])
